@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (gnnome_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printed as it starts (flush=True, so a cut run shows where it
+stopped); any failure raises and exits non-zero:
+
+1. build   — compile ``gnnome_tpu_torch/csrc/*.cu`` with nvcc (sm_90a) into
+             ``gnnome_tpu_torch/_build/`` (cached by source hash).
+2. parity  — each kernel against its plain PyTorch version on the card, at
+             the shapes the main path gives it, with a stated tolerance;
+             kernel, plain and (where one exists) library-call times with
+             CUDA events. Run on two chr19-size synthetic graphs (150k
+             nodes, ~1M edges): the bench graph, whose skip edges all land
+             within 22 node ids (rows gathered near each other), and the
+             same graph with 11.93% of its edges rewired to random loci, the
+             cross-locus share of real graphs.
+3. scoring — the main path: ``score_graph`` of the 16-layer, D=256 GatedGCN
+             (``pretrained/model_hardfull40.npz``) on both graphs; every
+             launch counter is reset just before and read just after each
+             forward, and each kernel must have run; torch.profiler then
+             breaks the forward down by kernel group.
+4. end to end — ``inference()`` from simulated reads to contigs on a 60 kb
+             genome with a planted repeat; its edge probabilities are held
+             against the port's CPU path (the plain versions) on that graph.
+
+The line before last is the kernel table as JSON, the one before that the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package beside it, the script prints no result and exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+WEIGHTS = ROOT / "pretrained" / "model_hardfull40.npz"
+WORK = ROOT / "runs" / "chip_smoke"  # git-ignored
+
+N_NODES, N_EDGES = 150_000, 1_000_000  # chr19-size graph (PERFORMANCE.md:565)
+# share of real edges joining loci > 100 kb apart (PERFORMANCE.md:18);
+# bench_edges rewires a share of its ~N_EDGES - N_NODES skip edges
+CROSS_LOCUS = 0.1193
+FRAC_LONG = CROSS_LOCUS * N_EDGES / (N_EDGES - N_NODES)
+LOCAL_REACH = 22  # the farthest a bench skip edge reaches (2 * 11)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+KERNEL_TOL = 1e-5  # rtol = atol; the kernels sum in f32 in another order
+# edge probabilities, CUDA path vs CPU path (atol; the inference parity of
+# tests/test_torch_inference.py). Logits are not held tighter than the JAX package agrees with the
+# port on the CPU: on the e2e graph with the shipped 16-layer model the two
+# differ by up to 4.1e-4 in a logit from f32 summation order alone.
+PROB_TOL = 1e-4
+LAYERS, SCORE_HEAD_GATHERS = 16, 2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name: str, torch, got, ref, rtol: float, atol: float) -> float:
+    err = (got - ref).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    bad = int((err > atol + rtol * ref.abs()).sum())
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: {bad} elements outside rtol={rtol} "
+                             f"atol={atol} (max abs err {max_err:.3e})")
+    return max_err
+
+
+def card_name_and_power() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_parity(torch, graph, seed: int) -> list[dict]:
+    """Each kernel against its plain version at the main path's shapes."""
+    from gnnome_tpu_torch.ops.gate_epilog import (
+        GATE_SIGMA_GATHER, gate_sigma_gather, gate_sigma_gather_plain)
+    from gnnome_tpu_torch.ops.gate_front import (
+        GATE_FRONT, gate_front, gate_front_plain)
+    from gnnome_tpu_torch.ops.reverse_sum import (
+        SIGMA_REVERSE_SUM, sigma_reverse_sum, sigma_reverse_sum_plain)
+    from gnnome_tpu_torch.ops.take import TAKE_ROWS, take_rows, take_rows_plain
+
+    dev = graph.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, e, d, d_score = graph.n_nodes_padded, graph.n_edges_padded, 256, 64
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def rows(ids):  # distinct table rows the ids reference
+        return int(torch.unique(ids).numel())
+
+    u_src, u_dst = rows(graph.src), rows(graph.dst)
+    rows_out = []
+
+    def record(kernel, max_err, tol, fn, plain, library, n_bytes, n_ops):
+        ms = time_ms(torch, fn)
+        plain_ms = time_ms(torch, plain)
+        library_ms = time_ms(torch, library) if library else None
+        b_ms, b_by = bound(n_bytes, n_ops)
+        log(f"  {kernel.name}: max_abs_err={max_err:.3e} (tol rtol=atol={tol}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        rows_out.append(dict(
+            name=kernel.name, route="cuda", source=kernel.source,
+            replaces=kernel.replaces, launches=0, max_abs_err=max_err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms))
+
+    # 4: take (score head: [N, hidden_edge_scores] tables, canonical src ids)
+    table = randn(n, d_score)
+    got = take_rows(table, graph.src)
+    err = check_close("take_rows", torch, got, take_rows_plain(table, graph.src), 0.0, 0.0)
+    record(TAKE_ROWS, err, 0.0, lambda: take_rows(table, graph.src),
+           lambda: take_rows_plain(table, graph.src),
+           lambda: table.index_select(0, graph.src),
+           u_src * d_score * 4 + e * 4 + e * d_score * 4, 0)
+    del table, got
+
+    # 1: gate front
+    b1h, b2h, ein = randn(n, d), randn(n, d), randn(e, d)
+    w3, b3 = randn(d, d, scale=d ** -0.5), randn(d)
+    args = (b1h, b2h, ein, w3, b3, graph.src, graph.dst, graph.n_edges)
+    gate, mom = gate_front(*args)
+    ref_gate, ref_mom = gate_front_plain(*args)
+    err = max(check_close("gate_front.gate", torch, gate, ref_gate, KERNEL_TOL, KERNEL_TOL),
+              check_close("gate_front.mom/E", torch, mom / graph.n_edges,
+                          ref_mom / graph.n_edges, KERNEL_TOL, KERNEL_TOL))
+    record(GATE_FRONT, err, KERNEL_TOL, lambda: gate_front(*args),
+           lambda: gate_front_plain(*args), None,
+           (2 * e * d + (u_src + u_dst) * d + d * d + d + 2 * d) * 4 + 2 * e * 4,
+           2 * e * d * d + 3 * e * d + 3 * graph.n_edges * d)
+    del ref_gate, ref_mom, b1h, b2h, w3, b3, args
+
+    # 2: gate epilog + forward aggregation
+    values = randn(n, d)
+    affine = torch.stack([torch.rand(d, generator=gen, device=dev) + 0.5, randn(d)])
+    args = (gate, ein, values, affine, graph.by_dst, graph.src)
+    sums, e_new = gate_sigma_gather(*args)
+    ref_sums, ref_e_new = gate_sigma_gather_plain(*args)
+    err = max(check_close("gate_sigma_gather.sums", torch, sums, ref_sums, KERNEL_TOL, KERNEL_TOL),
+              check_close("gate_sigma_gather.e_new", torch, e_new, ref_e_new,
+                          KERNEL_TOL, KERNEL_TOL))
+    record(GATE_SIGMA_GATHER, err, KERNEL_TOL, lambda: gate_sigma_gather(*args),
+           lambda: gate_sigma_gather_plain(*args), None,
+           (3 * e * d + u_src * d + 2 * d + 2 * n * d) * 4 + (n + 1 + e) * 4,
+           8 * e * d)
+    del ref_sums, ref_e_new, sums, gate, ein, args
+
+    # 3: reverse aggregation
+    args = (e_new, values, graph.by_src, graph.dst)
+    got = sigma_reverse_sum(*args)
+    err = check_close("sigma_reverse_sum", torch, got, sigma_reverse_sum_plain(*args),
+                      KERNEL_TOL, KERNEL_TOL)
+    record(SIGMA_REVERSE_SUM, err, KERNEL_TOL, lambda: sigma_reverse_sum(*args),
+           lambda: sigma_reverse_sum_plain(*args), None,
+           (e * d + u_dst * d + 2 * n * d) * 4 + (2 * e + n + 1) * 4,
+           5 * e * d)
+    return rows_out
+
+
+def phase_scoring(torch, graph, params, cfg, seed: int) -> dict:
+    from gnnome_tpu_torch.data.synthetic import bench_features
+    from gnnome_tpu_torch.decode.inference import score_graph
+    from gnnome_tpu_torch.ops.cuda_lib import KERNELS
+
+    e_feat, pe = bench_features(graph, seed, cfg.model.nb_pos_enc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k.launches = 0
+    logits = score_graph(params, graph, e_feat, pe)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in one forward: {launches}")
+    expect = {"gate_front": LAYERS, "gate_sigma_gather": LAYERS,
+              "sigma_reverse_sum": LAYERS, "take_rows": SCORE_HEAD_GATHERS}
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches}, expected {expect}")
+    if tuple(logits.shape) != (graph.n_edges_padded,) or not torch.isfinite(logits).all():
+        raise AssertionError(f"logits: shape {tuple(logits.shape)}, finite="
+                             f"{bool(torch.isfinite(logits).all())}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        score_graph(params, graph, e_feat, pe)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    log(f"  forward ms (3 runs, host clock after synchronize): "
+        f"{[round(t, 3) for t in times]}; median {times[1]:.3f}")
+    log(f"  peak device memory: {peak / 2**30:.3f} GiB; logits finite, "
+        f"mean {float(logits.mean()):.4f} std {float(logits.std()):.4f}")
+    profile_forward(torch, lambda: score_graph(params, graph, e_feat, pe))
+    return launches
+
+
+PORT_KERNELS = {  # device kernel name prefix -> the wrapper that launches it
+    "gate_front_kernel": "gate_front", "moments_reduce_kernel": "gate_front",
+    "gate_sigma_gather_kernel": "gate_sigma_gather",
+    "gate_epilog_tail_kernel": "gate_sigma_gather",
+    "sigma_reverse_sum_kernel": "sigma_reverse_sum",
+    "take_rows_kernel": "take_rows",
+}
+
+
+def kernel_group(name: str) -> str:
+    for prefix, wrapper in PORT_KERNELS.items():
+        if prefix in name:
+            return f"port: {wrapper}"
+    if "gemm" in name.lower() or "cutlass" in name.lower():
+        return "cuBLAS products"
+    return "other PyTorch kernels"
+
+
+def profile_forward(torch, forward, iters: int = 3) -> None:
+    """Device time of ``forward`` by kernel group under torch.profiler, and
+    the device's idle share (1 - busy / host time, unclamped: a negative
+    share means kernels overlapped)."""
+    from collections import defaultdict
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            forward()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    per_kernel = defaultdict(float)
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0 and getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
+            per_kernel[evt.key] += us / 1e3 / iters
+    busy = sum(per_kernel.values())
+    if busy == 0:
+        raise AssertionError("profile: torch.profiler recorded no device time")
+    groups = defaultdict(float)
+    for name, ms in per_kernel.items():
+        groups[kernel_group(name)] += ms
+    log(f"  profile ({iters} forwards): host {host_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / host_ms:.4f} per forward")
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {name:28s} {ms:9.3f} ms  {ms / busy:6.1%}")
+    log("  top kernels (ms per forward):")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {ms:9.3f}  {name[:100]}")
+
+
+def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> None:
+    import numpy as np
+
+    from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
+    from gnnome_tpu_torch.data.simulate import simulate_reads, write_fasta
+    from gnnome_tpu_torch.decode.inference import inference, load_model, score_graph
+    from gnnome_tpu_torch.evaluation.assembly import calculate_n50
+    from gnnome_tpu_torch.evaluation.metrics import classification_metrics, confusion_counts
+
+    data = WORK / "e2e"
+    shutil.rmtree(data, ignore_errors=True)
+    (data / "raw").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    genome = rng.choice(list("ACGT"), size=60_000)
+    genome[30_000:34_000] = genome[5_000:9_000]  # planted repeat
+    records = simulate_reads("".join(genome), coverage=14.0,
+                             lengths=np.full(200, 2200, dtype=np.int64), seed=seed + 1)
+    write_fasta(str(data / "raw" / "0.fasta"), records)
+    log(f"  simulated {len(records)} reads of a 60 kb genome")
+
+    t0 = time.perf_counter()
+    walks, contigs = inference(str(data), str(model_path), cfg,
+                               log_fn=lambda m: log(f"  {m}"),
+                               ref_lengths={0: len(genome)}, device=device)
+    log(f"  inference() from reads to contigs: {time.perf_counter() - t0:.2f} s")
+    (_, sample), = AssemblyGraphDataset(str(data), cfg.model.nb_pos_enc, device=device)
+    g = sample.graph
+    logits = score_graph(load_model(str(model_path), cfg, device), g, sample.e_feat, sample.pe)
+    m = classification_metrics(confusion_counts(logits[: g.n_edges], sample.y[: g.n_edges]))
+    lengths = [len(seq) for _, seq in contigs[0]]
+    log(f"  graph: {g.n_nodes} nodes, {g.n_edges} edges; edge f1={m['f1']:.4f} "
+        f"accuracy={m['accuracy']:.4f}; contigs={len(lengths)} "
+        f"N50={calculate_n50(lengths) if lengths else 0} total={sum(lengths)} bp")
+    if not lengths or not all(len(w) > 1 for w in walks[0]):
+        raise AssertionError("no contigs decoded")
+
+    (_, cpu_sample), = AssemblyGraphDataset(str(data), cfg.model.nb_pos_enc, device="cpu")
+    ref = score_graph(load_model(str(model_path), cfg, "cpu"), cpu_sample.graph,
+                      cpu_sample.e_feat, cpu_sample.pe)
+    err = check_close("e2e edge probabilities (cuda vs cpu plain path)", torch,
+                      torch.sigmoid(logits.cpu()), torch.sigmoid(ref), 0.0, PROB_TOL)
+    log(f"  edge probabilities, CUDA kernels vs CPU plain path: max abs err "
+        f"{err:.3e} (tol atol={PROB_TOL}); max logit difference "
+        f"{float((logits.cpu() - ref).abs().max()):.3e}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "gnnome_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: gnnome_tpu_torch/ not found beside {Path(__file__).name}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    WORK.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
+
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.data.synthetic import build_bench_graph
+    from gnnome_tpu_torch.decode.inference import load_model
+    from gnnome_tpu_torch.ops import cuda_lib
+
+    log("phase 1: build")
+    cached = cuda_lib.library_path().exists()
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    log(f"  {cuda_lib.library_path().relative_to(ROOT)}: "
+        f"{time.perf_counter() - t0:.2f} s ({'cached' if cached else 'built now'})")
+
+    log(f"phase 2: kernel parity at the main path's shapes (seed {args.seed})")
+    graphs = {}
+    for label, frac_long in (("local", 0.0), ("cross-locus", FRAC_LONG)):
+        t0 = time.perf_counter()
+        graph, n_edges = build_bench_graph(N_NODES, N_EDGES, seed=args.seed,
+                                           frac_long=frac_long, device="cuda")
+        reach = (graph.dst[:n_edges].long() - graph.src[:n_edges].long()).abs()
+        far = float((reach > LOCAL_REACH).float().mean())
+        log(f"  {label} bench graph: {graph.n_nodes} nodes, {n_edges} edges, "
+            f"{far:.2%} reaching over {LOCAL_REACH} node ids, built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        graphs[label] = graph
+    with torch.inference_mode():
+        kernels = phase_parity(torch, graphs["local"], args.seed)
+        log("  cross-locus graph:")
+        for row, cross in zip(kernels, phase_parity(torch, graphs["cross-locus"], args.seed)):
+            row["cross_locus"] = {k: cross[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    torch.cuda.empty_cache()
+
+    log("phase 3: full-scale scoring (16 layers, D=256)")
+    log(f"  card: {card_name_and_power()}")
+    cfg = Config()  # the shipped models' shapes: D=256, 16 layers, PE 16
+    log(f"  weights: {WEIGHTS.relative_to(ROOT)}")
+    params = load_model(str(WEIGHTS), cfg, "cuda")
+    log("  cross-locus graph:")
+    phase_scoring(torch, graphs.pop("cross-locus"), params, cfg, args.seed)
+    log("  local graph (the main path's launch counts):")
+    launches = phase_scoring(torch, graphs.pop("local"), params, cfg, args.seed)
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    del params
+    torch.cuda.empty_cache()
+
+    log("phase 4: end to end, reads to contigs")
+    phase_end_to_end(torch, cfg, WEIGHTS, args.seed)
+
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(card_name_and_power())
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""Row gather ``table[ids]`` with zero rows for out-of-range ids.
+
+Counterpart of ``gnnome_tpu/ops/banded.py:take_rows`` and its Pallas
+kernel ``banded_take_pallas``. The CUDA kernel is ``csrc/take.cu``; the
+plain version below is its CPU form and its reference on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from gnnome_tpu_torch.ops.cuda_lib import (
+    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+
+TAKE_ROWS = register(Kernel(
+    "take_rows", "gnnome_take_rows_f32", [P, P, P, I64, I64, I32, I32],
+    source="gnnome_tpu_torch/csrc/take.cu",
+    replaces="gnnome_tpu/ops/banded.py:300 banded_take_pallas"))
+
+
+def take_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    valid = (ids >= 0) & (ids < table.shape[0])
+    rows = table.index_select(0, torch.where(valid, ids, torch.zeros_like(ids)))
+    return torch.where(valid[:, None], rows, torch.zeros((), dtype=table.dtype,
+                                                         device=table.device))
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` ([R, D] table, int ids [E] → [E, D]); ids outside
+    ``[0, R)``, such as ``PAD_SEGMENT``, give zero rows."""
+    if on_cpu(table, ids):
+        return take_rows_plain(table, ids)
+    check_cuda_args("take_rows", [table], [ids])
+    n_rows, d = table.shape
+    out = torch.empty((ids.shape[0], d), dtype=table.dtype, device=table.device)
+    TAKE_ROWS(table.device, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+              ids.shape[0], n_rows, d, int(vec4_ok(d, table, out)))
+    return out
