@@ -16,23 +16,38 @@ stopped); any failure raises and exits non-zero:
              within 22 node ids (rows gathered near each other), and the
              same graph with 11.93% of its edges rewired to random loci, the
              cross-locus share of real graphs.
-3. scoring — the main path: ``score_graph`` of the 16-layer, D=256 GatedGCN
-             (``pretrained/model_hardfull40.npz``) on both graphs; every
-             launch counter is reset just before and read just after each
-             forward, and each kernel must have run; torch.profiler then
-             breaks the forward down by kernel group.
-4. end to end — ``inference()`` from simulated reads to contigs on a 60 kb
+3. scoring — the serving path: ``score_graph`` of the 16-layer, D=256
+             GatedGCN (``pretrained/model_hardfull40.npz``) on both graphs;
+             every launch counter is reset just before and read just after
+             each forward, and each forward kernel must have run;
+             torch.profiler then breaks the forward down by kernel group.
+4. training — the training path at full scale: ``train_step`` (forward,
+             BCE with pos_weight 0.5, backward, Adam at lr 1e-3) of the
+             16-layer, D=256 model from seeded random weights on the local
+             graph with ``bench_labels``, under ``remat="layer"`` and
+             ``remat="none"``: launch counts of one step against the stated
+             counts, the median of 3 steps after a warm-up, peak memory, a
+             torch.profiler breakdown and a finite loss on every step. Only
+             ``remat="none"`` may run out of device memory; that is
+             reported with the size and the phase goes on.
+5. end to end — ``inference()`` from simulated reads to contigs on a 60 kb
              genome with a planted repeat; its edge probabilities are held
              against the port's CPU path (the plain versions) on that graph.
+6. gradients and the loop — on that genome, the 16-layer, D=256 model's
+             parameter gradients on the card against the port's CPU path
+             (per leaf, relative norm), then ``train()`` for 2 epochs and a
+             resume to 4.
 
-The line before last is the kernel table as JSON, the one before that the
-card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-package beside it, the script prints no result and exits non-zero.
+The line before last is the kernel table as JSON (``launches``: one
+training step under ``remat="layer"``), the one before that the card's
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the package beside it, the script prints
+no result and exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import shutil
 import subprocess
@@ -58,7 +73,18 @@ KERNEL_TOL = 1e-5  # rtol = atol; the kernels sum in f32 in another order
 # port on the CPU: on the e2e graph with the shipped 16-layer model the two
 # differ by up to 4.1e-4 in a logit from f32 summation order alone.
 PROB_TOL = 1e-4
+# parameter gradients of the 16-layer, D=256 model on the 60 kb genome,
+# card vs CPU, per leaf as ||g - g_cpu|| / ||g_cpu||: the bound that
+# tests/test_torch_train.py::test_deep_model_grads_on_genome_match_jax holds
+# the port's CPU path to against JAX on the same graph (measured 1.7e-2:
+# the first layer's BatchNorm sees near-constant features there and
+# amplifies f32 rounding). Leaves whose CPU gradient is below 1e-6 of the
+# whole gradient's norm are rounding noise (the biases feeding a BatchNorm,
+# whose exact gradient is zero) and are held to 1e-5 of that norm instead.
+GRAD_TOL = 5e-2
+NOISE = 1e-6
 LAYERS, SCORE_HEAD_GATHERS = 16, 2
+LR, POS_WEIGHT = 1e-3, 0.5  # bench.py's step
 
 
 def log(msg: str) -> None:
@@ -105,11 +131,16 @@ def card_name_and_power() -> str:
 def phase_parity(torch, graph, seed: int) -> list[dict]:
     """Each kernel against its plain version at the main path's shapes."""
     from gnnome_tpu_torch.ops.gate_epilog import (
-        GATE_SIGMA_GATHER, gate_sigma_gather, gate_sigma_gather_plain)
+        EPILOG_BWD, GATE_SIGMA_GATHER, epilog_bwd, epilog_bwd_plain, gate_sigma_gather,
+        gate_sigma_gather_plain)
     from gnnome_tpu_torch.ops.gate_front import (
-        GATE_FRONT, gate_front, gate_front_plain)
+        GATE_FRONT, GATE_FRONT_BWD, gate_front, gate_front_bwd, gate_front_bwd_plain,
+        gate_front_plain)
     from gnnome_tpu_torch.ops.reverse_sum import (
-        SIGMA_REVERSE_SUM, sigma_reverse_sum, sigma_reverse_sum_plain)
+        REV_BWD, SIGMA_REVERSE_SUM, rev_bwd, rev_bwd_plain, sigma_reverse_sum,
+        sigma_reverse_sum_plain)
+    from gnnome_tpu_torch.ops.segment_sum import (
+        SEGMENT_SUM_BY_DST, SEGMENT_SUM_BY_SRC, segment_sum, segment_sum_plain)
     from gnnome_tpu_torch.ops.take import TAKE_ROWS, take_rows, take_rows_plain
 
     dev = graph.device
@@ -189,6 +220,58 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
            lambda: sigma_reverse_sum_plain(*args), None,
            (e * d + u_dst * d + 2 * n * d) * 4 + (2 * e + n + 1) * 4,
            5 * e * d)
+    del got, args
+
+    # the backward path (E x D cotangents at the same shapes)
+    if graph.n_edges != e:
+        raise AssertionError("the bench graph is unpadded: every key is a node id")
+    # 5, 6: segment sums, the transpose reductions (library: index_add_,
+    # float atomics, as a yardstick only)
+    data = randn(e, d)
+    for kernel, csr in ((SEGMENT_SUM_BY_DST, graph.by_dst), (SEGMENT_SUM_BY_SRC, graph.by_src)):
+        key = csr.key.long()
+        err = check_close(kernel.name, torch, segment_sum(data, csr),
+                          segment_sum_plain(data, csr), KERNEL_TOL, KERNEL_TOL)
+        record(kernel, err, KERNEL_TOL, lambda: segment_sum(data, csr),
+               lambda: segment_sum_plain(data, csr),
+               lambda: torch.zeros((n, d), device=dev).index_add_(0, key, data),
+               (e * d + n * d) * 4 + (n + 1) * 4 + (0 if csr.identity else e * 4), e * d)
+    del key
+
+    # 7: gate front backward (d_total and d_bias3; d_bias3 compared as a mean)
+    args = (data, randn(e, d), randn(2, d, scale=1.0 / graph.n_edges), graph.n_edges)
+    got, ref = gate_front_bwd(*args), gate_front_bwd_plain(*args)
+    err = max(check_close("gate_front_bwd.d_total", torch, got[0], ref[0], KERNEL_TOL, KERNEL_TOL),
+              check_close("gate_front_bwd.d_bias3/E", torch, got[1] / e, ref[1] / e,
+                          KERNEL_TOL, KERNEL_TOL))
+    record(GATE_FRONT_BWD, err, KERNEL_TOL, lambda: gate_front_bwd(*args),
+           lambda: gate_front_bwd_plain(*args), None, (3 * e * d + 3 * d) * 4, 5 * e * d)
+    del got, ref, args
+
+    # 8: gate epilog backward (d_affine compared as a mean)
+    g_sums = randn(n, 2 * d)
+    args = (randn(e, d), e_new, data, g_sums, values, affine, graph.by_dst, graph.src)
+    got, ref = epilog_bwd(*args), epilog_bwd_plain(*args)
+    err = max(*(check_close(f"epilog_bwd.{name}", torch, a, b, KERNEL_TOL, KERNEL_TOL)
+                for name, a, b in zip(("d_gate_raw", "d_e_in", "d_vals"), got, ref)),
+              check_close("epilog_bwd.d_affine/E", torch, got[3] / e, ref[3] / e,
+                          KERNEL_TOL, KERNEL_TOL))
+    del got, ref
+    record(EPILOG_BWD, err, KERNEL_TOL, lambda: epilog_bwd(*args),
+           lambda: epilog_bwd_plain(*args), None,
+           (6 * e * d + u_dst * 2 * d + u_src * d + 4 * d) * 4 + (n + 1 + e) * 4,
+           18 * e * d)
+    del args, data
+
+    # 9: reverse aggregation backward
+    args = (e_new, g_sums, values, graph.by_src, graph.dst)
+    got, ref = rev_bwd(*args), rev_bwd_plain(*args)
+    err = max(check_close(f"rev_bwd.{name}", torch, a, b, KERNEL_TOL, KERNEL_TOL)
+              for name, a, b in zip(("d_e_new", "d_v_rows"), got, ref))
+    del got, ref
+    record(REV_BWD, err, KERNEL_TOL, lambda: rev_bwd(*args), lambda: rev_bwd_plain(*args),
+           None, (3 * e * d + u_src * 2 * d + u_dst * d) * 4 + (n + 1 + 2 * e) * 4,
+           12 * e * d)
     return rows_out
 
 
@@ -207,8 +290,8 @@ def phase_scoring(torch, graph, params, cfg, seed: int) -> dict:
     launches = {name: k.launches for name, k in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches in one forward: {launches}")
-    expect = {"gate_front": LAYERS, "gate_sigma_gather": LAYERS,
-              "sigma_reverse_sum": LAYERS, "take_rows": SCORE_HEAD_GATHERS}
+    expect = {**expected_launches(remat=None), "gate_front_bwd": 0, "epilog_bwd": 0,
+              "rev_bwd": 0, "segment_sum_by_dst": 0, "segment_sum_by_src": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
     if tuple(logits.shape) != (graph.n_edges_padded,) or not torch.isfinite(logits).all():
@@ -225,8 +308,98 @@ def phase_scoring(torch, graph, params, cfg, seed: int) -> dict:
         f"{[round(t, 3) for t in times]}; median {times[1]:.3f}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB; logits finite, "
         f"mean {float(logits.mean()):.4f} std {float(logits.std()):.4f}")
-    profile_forward(torch, lambda: score_graph(params, graph, e_feat, pe))
+    profile_run(torch, lambda: score_graph(params, graph, e_feat, pe), "forward")
     return launches
+
+
+def expected_launches(remat) -> dict:
+    """Launches of one forward (``remat=None``) or one training step.
+
+    Forward: one of each layer kernel per layer, two row gathers in the
+    score head. A step adds, per layer, one of each backward kernel and
+    four segment sums (the gate front's d_b1h by src and d_b2h by dst, the
+    epilog's d_values by src, the reverse aggregation's d_values by dst),
+    and one segment sum per score-head gather. ``remat="layer"`` runs each
+    layer's forward again inside the backward; the score head is outside
+    the checkpoints."""
+    fwd = LAYERS * (2 if remat == "layer" else 1)
+    counts = {"gate_front": fwd, "gate_sigma_gather": fwd, "sigma_reverse_sum": fwd,
+              "take_rows": SCORE_HEAD_GATHERS}
+    if remat is not None:
+        counts.update({"gate_front_bwd": LAYERS, "epilog_bwd": LAYERS, "rev_bwd": LAYERS,
+                       "segment_sum_by_dst": 2 * LAYERS + 1,
+                       "segment_sum_by_src": 2 * LAYERS + 1})
+    return counts
+
+
+def phase_training(torch, graph, seed: int) -> dict:
+    """The full-scale training step under each remat mode; returns the
+    launch counts of one step per mode (None where it did not fit)."""
+    from gnnome_tpu_torch.config import ModelConfig
+    from gnnome_tpu_torch.data.synthetic import bench_features, bench_labels
+    from gnnome_tpu_torch.models.model import init_model_params
+    from gnnome_tpu_torch.ops.cuda_lib import KERNELS
+    from gnnome_tpu_torch.train.loop import make_optimizer, train_step
+
+    cfg = ModelConfig()  # the shipped models' shapes: D=256, 16 layers, PE 16
+    e_feat, pe = bench_features(graph, seed, cfg.nb_pos_enc)
+    y = bench_labels(graph, seed)
+    pos_weight = torch.tensor(POS_WEIGHT, device=graph.device)
+    log(f"  {graph.n_nodes} nodes, {graph.n_edges} edges, labels positive "
+        f"{float(y[: graph.n_edges].mean()):.4f}, pos_weight {POS_WEIGHT}, Adam lr {LR}")
+    out = {}
+    for remat in ("layer", "none"):
+        params = init_model_params(torch.Generator().manual_seed(seed), cfg, graph.device)
+        opt = make_optimizer(params, LR)
+
+        def step():
+            loss, _ = train_step(params, opt, graph, e_feat, pe, y, pos_weight, remat=remat)
+            torch.cuda.synchronize()
+            if not torch.isfinite(loss):
+                raise AssertionError(f"remat={remat!r}: loss {float(loss)} is not finite")
+            return float(loss)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for k in KERNELS.values():
+                k.launches = 0
+            losses = [step()]
+            launches = {name: k.launches for name, k in KERNELS.items()}
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                losses.append(step())
+                times.append((time.perf_counter() - t0) * 1e3)
+        except torch.cuda.OutOfMemoryError as exc:
+            if remat != "none":
+                raise
+            log(f"  remat='none': did not fit on the card ({torch.cuda.get_device_name(0)}, "
+                f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB): "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated when "
+                f"{str(exc).splitlines()[0]}")
+            out[remat] = None
+            del params, opt, exc
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  remat={remat!r}: launches in one step: {launches}")
+        if launches != expected_launches(remat):
+            raise AssertionError(f"launch counts {launches}, expected "
+                                 f"{expected_launches(remat)}")
+        times.sort()
+        log(f"  remat={remat!r}: step ms (3 after a warm-up, host clock after synchronize): "
+            f"{[round(t, 3) for t in times]}; median {times[1]:.3f}; "
+            f"{graph.n_edges / (times[1] / 1e3):.0f} edges/s; peak device memory "
+            f"{peak / 2**30:.3f} GiB; losses {[round(x, 5) for x in losses]}")
+        profile_run(torch, step, "step", iters=2)
+        out[remat] = launches
+        del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 PORT_KERNELS = {  # device kernel name prefix -> the wrapper that launches it
@@ -235,20 +408,27 @@ PORT_KERNELS = {  # device kernel name prefix -> the wrapper that launches it
     "gate_epilog_tail_kernel": "gate_sigma_gather",
     "sigma_reverse_sum_kernel": "sigma_reverse_sum",
     "take_rows_kernel": "take_rows",
+    "gate_front_bwd_kernel": "gate_front_bwd", "bias3_reduce_kernel": "gate_front_bwd",
+    "epilog_bwd_kernel": "epilog_bwd", "affine_reduce_kernel": "epilog_bwd",
+    "rev_bwd_kernel": "rev_bwd",
 }
 
 
 def kernel_group(name: str) -> str:
+    if "segment_sum_kernel" in name:  # template <VEC, ORDERED>: by_src is ordered
+        return "port: segment_sum_by_src" if "true>" in name else "port: segment_sum_by_dst"
     for prefix, wrapper in PORT_KERNELS.items():
         if prefix in name:
             return f"port: {wrapper}"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "cuBLAS products"
+    if "multi_tensor_apply" in name:
+        return "Adam (torch.optim, foreach)"
     return "other PyTorch kernels"
 
 
-def profile_forward(torch, forward, iters: int = 3) -> None:
-    """Device time of ``forward`` by kernel group under torch.profiler, and
+def profile_run(torch, run, what: str, iters: int = 3) -> None:
+    """Device time of ``run`` by kernel group under torch.profiler, and
     the device's idle share (1 - busy / host time, unclamped: a negative
     share means kernels overlapped)."""
     from collections import defaultdict
@@ -257,7 +437,7 @@ def profile_forward(torch, forward, iters: int = 3) -> None:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            forward()
+            run()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / iters
     per_kernel = defaultdict(float)
@@ -273,16 +453,17 @@ def profile_forward(torch, forward, iters: int = 3) -> None:
     groups = defaultdict(float)
     for name, ms in per_kernel.items():
         groups[kernel_group(name)] += ms
-    log(f"  profile ({iters} forwards): host {host_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms, idle share {1 - busy / host_ms:.4f} per forward")
+    log(f"  profile ({iters} x {what}): host {host_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / host_ms:.4f} per {what}")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"    {name:28s} {ms:9.3f} ms  {ms / busy:6.1%}")
-    log("  top kernels (ms per forward):")
+        log(f"    {name:30s} {ms:9.3f} ms  {ms / busy:6.1%}")
+    log(f"  top kernels (ms per {what}):")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {ms:9.3f}  {name[:100]}")
 
 
-def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> None:
+def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> Path:
+    """Reads to contigs; returns the genome's data directory."""
     import numpy as np
 
     from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
@@ -326,6 +507,72 @@ def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> 
     log(f"  edge probabilities, CUDA kernels vs CPU plain path: max abs err "
         f"{err:.3e} (tol atol={PROB_TOL}); max logit difference "
         f"{float((logits.cpu() - ref).abs().max()):.3e}")
+    return data
+
+
+def phase_gradients_and_loop(torch, data: Path, seed: int, device="cuda") -> None:
+    """The 16-layer, D=256 model's gradients on ``device`` against the CPU
+    path on the genome graph, then ``train()`` with a resume."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
+    from gnnome_tpu_torch.evaluation.metrics import bce_with_logits
+    from gnnome_tpu_torch.models.model import init_model_params, model_forward
+    from gnnome_tpu_torch.train.checkpoint import iter_leaves
+    from gnnome_tpu_torch.train.loop import train
+
+    cfg = Config()
+    grads = []
+    for dev in (device, "cpu"):
+        (_, s), = AssemblyGraphDataset(str(data), cfg.model.nb_pos_enc, device=dev)
+        y = s.y[: s.graph.n_edges]
+        pos_weight = (1 - y).sum() / y.sum()
+        params = init_model_params(torch.Generator().manual_seed(seed), cfg.model, dev)
+        leaves = dict(iter_leaves(params))
+        for leaf in leaves.values():
+            leaf.requires_grad_(True)
+        logits = model_forward(params, s.graph, s.e_feat, s.pe, remat="layer")
+        bce_with_logits(logits, s.y, s.graph.edge_mask, pos_weight).backward()
+        grads.append({k: leaf.grad.cpu() for k, leaf in leaves.items()})
+    got, ref = grads
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in ref.values())))
+    errs, noise = {}, {}
+    for k, r in ref.items():
+        if float(r.norm()) <= NOISE * total:
+            noise[k] = float(got[k].norm()) / total
+        else:
+            errs[k] = float((got[k] - r).norm() / r.norm())
+    worst = max(errs, key=errs.get)
+    log(f"  {s.graph.n_nodes} nodes, {s.graph.n_edges} edges; parameter gradients, "
+        f"card vs CPU: worst leaf {worst} {errs[worst]:.3e} (tol {GRAD_TOL}); median "
+        f"leaf {sorted(errs.values())[len(errs) // 2]:.3e}; {len(noise)} leaves at "
+        f"rounding noise on the CPU, on the card at most "
+        f"{max(noise.values(), default=0.0):.2e} of the gradient norm (tol {10 * NOISE:.0e})")
+    if errs[worst] > GRAD_TOL or max(noise.values(), default=0.0) > 10 * NOISE:
+        raise AssertionError("parameter gradients: card and CPU disagree")
+
+    work = WORK / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg.train.num_parts_train = 1  # full-graph; ClusterGCN is not ported
+    cfg.train.checkpoint_dir = str(work / "checkpoints")
+    cfg.train.pretrained_dir = str(work / "pretrained")
+    logs = []
+
+    def log_fn(msg):
+        logs.append(msg)
+        log(f"  {msg}")
+
+    cfg.train.num_epochs = 2
+    first = train(str(data), None, out="smoke", overfit=True, cfg=cfg, log_fn=log_fn,
+                  device=device)
+    cfg.train.num_epochs = 4
+    second = train(str(data), None, out="smoke", overfit=True, cfg=cfg, log_fn=log_fn,
+                   device=device)
+    losses = second["loss_train"]
+    if not any(m.startswith("Resumed") and m.endswith("at epoch 2") for m in logs):
+        raise AssertionError("train() did not resume at epoch 2")
+    if losses[:2] != first["loss_train"] or len(losses) != 4 or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {first['loss_train']} then {losses}")
+    log(f"  train losses over 4 epochs: {[round(x, 5) for x in losses]}")
 
 
 def main() -> int:
@@ -388,15 +635,25 @@ def main() -> int:
     params = load_model(str(WEIGHTS), cfg, "cuda")
     log("  cross-locus graph:")
     phase_scoring(torch, graphs.pop("cross-locus"), params, cfg, args.seed)
-    log("  local graph (the main path's launch counts):")
-    launches = phase_scoring(torch, graphs.pop("local"), params, cfg, args.seed)
-    for row in kernels:
-        row["launches"] = launches[row["name"]]
+    log("  local graph:")
+    scoring = phase_scoring(torch, graphs["local"], params, cfg, args.seed)
     del params
     torch.cuda.empty_cache()
 
-    log("phase 4: end to end, reads to contigs")
-    phase_end_to_end(torch, cfg, WEIGHTS, args.seed)
+    log("phase 4: full-scale training step (16 layers, D=256)")
+    training = phase_training(torch, graphs.pop("local"), args.seed)
+    for row in kernels:
+        row["launches"] = training["layer"][row["name"]]
+        row["launches_by_path"] = {
+            "scoring": scoring[row["name"]], "train_step_remat_layer": row["launches"],
+            "train_step_remat_none": None if training["none"] is None
+            else training["none"][row["name"]]}
+
+    log("phase 5: end to end, reads to contigs")
+    data = phase_end_to_end(torch, cfg, WEIGHTS, args.seed)
+
+    log("phase 6: gradients on the card against the CPU, and train() with a resume")
+    phase_gradients_and_loop(torch, data, args.seed)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card_name_and_power())

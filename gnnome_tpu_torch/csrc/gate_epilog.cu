@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(128) gate_sigma_gather_kernel(
         gnnome::load_vec<VEC>(values + so + c, val);
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
-          en[q] = fmaxf(g[q] * sc[q] + bi[q], 0.0f) + x[q];
+          en[q] = fmaxf(gnnome::bn_affine(g[q], sc[q], bi[q]), 0.0f) + x[q];
           const float sg = gnnome::sigmoid(en[q]);
           acc1[q] += sg * val[q];
           acc2[q] += sg;
@@ -82,7 +82,9 @@ __global__ void __launch_bounds__(256) gate_epilog_tail_kernel(
     gnnome::load_vec<VEC>(affine + c, sc);
     gnnome::load_vec<VEC>(affine + d + c, bi);
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) en[q] = fmaxf(g[q] * sc[q] + bi[q], 0.0f) + x[q];
+    for (int q = 0; q < VEC; ++q) {
+      en[q] = fmaxf(gnnome::bn_affine(g[q], sc[q], bi[q]), 0.0f) + x[q];
+    }
     gnnome::store_vec<VEC>(e_new + k * d + c, en);
   }
 }

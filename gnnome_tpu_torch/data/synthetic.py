@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnnome_tpu_torch.core.graph import AssemblyGraph, build_graph, pad_features
+from gnnome_tpu_torch.core.graph import (
+    AssemblyGraph, build_graph, pad_features, prepare_edge_features)
 from gnnome_tpu_torch.data.pe import pagerank_pe_np
 
 
@@ -64,3 +65,12 @@ def bench_features(graph: AssemblyGraph, seed: int, nb_pos_enc: int):
         pagerank_pe_np(src, dst, n, nb_pos_enc)], axis=1)
     return (torch.from_numpy(e_feat).to(graph.device),
             torch.from_numpy(pad_features(pe, graph.n_nodes_padded)).to(graph.device))
+
+
+def bench_labels(graph: AssemblyGraph, seed: int) -> torch.Tensor:
+    """Edge labels of the JAX package's bench (``bench.py:106-107``): each
+    real edge positive with probability 0.7 (``bench.py`` trains on them
+    with pos_weight 0.5), drawn from ``seed`` in edge-list order; f32[E_pad]
+    in canonical order on the graph's device, zero on padding."""
+    rng = np.random.default_rng(seed)
+    return prepare_edge_features(graph, (rng.random(graph.n_edges) < 0.7).astype(np.float32))

@@ -1,4 +1,4 @@
-"""Edge-gated GatedGCN layer with bidirectional aggregation (forward).
+"""Edge-gated GatedGCN layer with bidirectional aggregation.
 
 Counterpart of ``gnnome_tpu/models/gated_gcn.py``; reference
 ``layers/gated_gcn_full.py:99-157``. Per layer, for directed edge ``j → i``::
@@ -16,9 +16,11 @@ the same expression with the same normalizer.
 
 The ``batch_norm=True`` branch (the shipped models) runs the three kernels
 of the layer: gate front (gather + B3 product + moments), gate epilog with
-the forward aggregation, and the reverse aggregation. The
-``batch_norm=False`` branch uses plain PyTorch functions: it has no kernel
-in this slice.
+the forward aggregation, and the reverse aggregation; their backward
+kernels give it its gradient, and the BatchNorm statistics taken from
+``mom`` stay plain autograd, which carries ``d_mom`` into the gate front's
+backward. The ``batch_norm=False`` branch uses plain PyTorch functions
+(differentiable by autograd): it has no kernel yet.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@ aggregation and its neighbour gather.
 
 Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:fused_gate_sigma_gather_pallas``.
 The CUDA kernel is ``csrc/gate_epilog.cu``; the plain version below is its
-CPU form and its reference on the card.
+CPU form and its reference on the card. Its backward
+(:class:`GateSigmaGather`, the JAX ``_fused_gate_gather_bwd``) runs
+``csrc/epilog_bwd.cu`` (``epilog_bwd_pallas``) and the by_src segment sum.
 """
 from __future__ import annotations
 
@@ -12,12 +14,24 @@ import torch
 from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
     I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+from gnnome_tpu_torch.ops.segment_sum import segment_sum
+from gnnome_tpu_torch.ops.take import take_rows_plain
 
 GATE_SIGMA_GATHER = register(Kernel(
     "gate_sigma_gather", "gnnome_gate_sigma_gather_f32",
     [P, P, P, P, P, P, P, P, I64, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_epilog.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:3020 fused_gate_sigma_gather_pallas"))
+EPILOG_BWD = register(Kernel(
+    "epilog_bwd", "gnnome_epilog_bwd_f32",
+    [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    source="gnnome_tpu_torch/csrc/epilog_bwd.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:1550 epilog_bwd_pallas"))
+
+# blocks of 8 warps that walk the destination rows (csrc/epilog_bwd.cu);
+# each leaves one partial d_affine row, summed in a fixed order
+_ROWS_PER_BLOCK = 8
+_MAX_PARTS = 1024
 
 
 def gate_sigma_gather_plain(gate, e_in, values, affine, by_dst: CSR, src):
@@ -59,3 +73,73 @@ def gate_sigma_gather(gate: torch.Tensor, e_in: torch.Tensor,
                       by_dst.offsets.data_ptr(), src.data_ptr(),
                       sums.data_ptr(), e_new.data_ptr(), n, n_rows, d, int(vec4))
     return sums, e_new
+
+
+def epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst: CSR, src):
+    d = values.shape[1]
+    gc = take_rows_plain(g_sums, by_dst.key)  # zero rows on padded edges
+    g1, g2 = gc[:, :d], gc[:, d:]
+    pre = gate_raw * affine[0] + affine[1]
+    sig = torch.sigmoid(e_new)
+    d_enew = g_enew + (g1 * values[src] + g2) * (sig * (1.0 - sig))
+    d_pre = d_enew * (pre > 0)
+    d_affine = torch.stack([(d_pre * gate_raw).sum(0), d_pre.sum(0)])
+    return d_pre * affine[0], d_enew, g1 * sig, d_affine
+
+
+def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor,
+               g_sums: torch.Tensor, values: torch.Tensor, affine: torch.Tensor,
+               by_dst: CSR, src: torch.Tensor):
+    """``(d_gate_raw, d_e_in, d_vals, d_affine)``: the cotangents of
+    :func:`gate_sigma_gather`'s inputs per canonical edge, given those of
+    its outputs (``g_sums`` [N, 2D], ``g_enew`` [E, D]); ``d_vals`` is per
+    edge (its by_src segment sum is ``d_values``) and ``d_affine`` ([2, D])
+    is summed over all rows, padded ones included."""
+    if not by_dst.identity:
+        raise ValueError("epilog_bwd runs on the canonical (by_dst) layout")
+    if on_cpu(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst.key,
+              by_dst.offsets, src):
+        return epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine,
+                                by_dst, src)
+    floats = [gate_raw, e_new, g_enew, g_sums, values, affine]
+    check_cuda_args("epilog_bwd", floats, [by_dst.offsets, src])
+    n, d = values.shape
+    n_rows = gate_raw.shape[0]
+    if by_dst.offsets.shape[0] != n + 1 or not (gate_raw.shape == e_new.shape
+                                                 == g_enew.shape) \
+            or gate_raw.shape[1] != d or g_sums.shape != (n, 2 * d) \
+            or affine.shape != (2, d):
+        raise ValueError("epilog_bwd: shape mismatch")
+    n_parts = max(1, min(_MAX_PARTS, -(-(n + 1) // _ROWS_PER_BLOCK)))
+    d_gate_raw, d_e_in, d_vals = (torch.empty_like(gate_raw) for _ in range(3))
+    partial = torch.empty((n_parts, 2, d), dtype=torch.float32, device=gate_raw.device)
+    d_affine = torch.empty((2, d), dtype=torch.float32, device=gate_raw.device)
+    vec4 = vec4_ok(d, *floats, d_gate_raw, d_e_in, d_vals)
+    EPILOG_BWD(gate_raw.device, *(t.data_ptr() for t in floats),
+               by_dst.offsets.data_ptr(), src.data_ptr(), d_gate_raw.data_ptr(),
+               d_e_in.data_ptr(), d_vals.data_ptr(), partial.data_ptr(),
+               d_affine.data_ptr(), n, n_rows, d, n_parts, int(vec4))
+    return d_gate_raw, d_e_in, d_vals, d_affine
+
+
+class GateSigmaGather(torch.autograd.Function):
+    """:func:`gate_sigma_gather` with the gradient of the JAX
+    ``fused_gate_sigma_gather`` (``gnnome_tpu/ops/segment.py:804-850``).
+    Saves ``(gate_raw, e_new, values, affine)``: ``e_new``, the forward's
+    own output, in place of ``e_in``, as ``_fused_gate_gather_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, gate, e_in, values, affine, by_dst: CSR, src, by_src: CSR):
+        sums, e_new = gate_sigma_gather(gate, e_in, values, affine, by_dst, src)
+        ctx.save_for_backward(gate, e_new, values, affine)
+        ctx.by_dst, ctx.src, ctx.by_src = by_dst, src, by_src
+        return sums, e_new
+
+    @staticmethod
+    def backward(ctx, g_sums, g_enew):
+        gate, e_new, values, affine = ctx.saved_tensors
+        d_gate, d_e_in, d_vals, d_affine = epilog_bwd(
+            gate, e_new, g_enew.contiguous(), g_sums.contiguous(), values, affine,
+            ctx.by_dst, ctx.src)
+        d_values = segment_sum(d_vals, ctx.by_src) if ctx.needs_input_grad[2] else None
+        return d_gate, d_e_in, d_values, d_affine, None, None, None

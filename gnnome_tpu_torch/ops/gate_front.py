@@ -4,19 +4,29 @@ BatchNorm moments over real edges, in one pass.
 Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:gate_front_pallas``. The
 CUDA kernel is ``csrc/gate_front.cu`` (the ``e·W3`` product runs inside
 it); the plain version below is its CPU form and its reference on the card.
+Its backward (:class:`GateFront`, the JAX ``_gate_front_bwd``) runs
+``csrc/gate_front_bwd.cu`` (``gate_front_bwd_stream_pallas``) and the two
+endpoint segment sums; the B3 gradients are matrix products.
 """
 from __future__ import annotations
 
 import torch
 
+from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
-    I32, I64, P, Kernel, check_cuda_args, on_cpu, register)
+    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+from gnnome_tpu_torch.ops.segment_sum import segment_sum
 
 GATE_FRONT = register(Kernel(
     "gate_front", "gnnome_gate_front_f32",
     [P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_front.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:2669 gate_front_pallas"))
+GATE_FRONT_BWD = register(Kernel(
+    "gate_front_bwd", "gnnome_gate_front_bwd_f32",
+    [P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    source="gnnome_tpu_torch/csrc/gate_front_bwd.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:1031 gate_front_bwd_stream_pallas"))
 
 # blocks that walk the 64-edge row tiles (csrc/gate_front.cu); each leaves
 # one partial moments row, summed in a fixed order by a second kernel
@@ -53,3 +63,58 @@ def gate_front(b1h: torch.Tensor, b2h: torch.Tensor, e: torch.Tensor,
                gate.data_ptr(), partial.data_ptr(), mom.data_ptr(),
                n_rows, n_real, d, n_parts)
     return gate, mom
+
+
+def gate_front_bwd_plain(d_gate, gate, d_mom, n_real: int):
+    real = (torch.arange(gate.shape[0], device=gate.device) < n_real)[:, None]
+    d_total = d_gate + torch.where(real, d_mom[0] + 2.0 * gate * d_mom[1], 0.0)
+    return d_total, d_total.sum(0)
+
+
+def gate_front_bwd(d_gate: torch.Tensor, gate: torch.Tensor, d_mom: torch.Tensor,
+                   n_real: int):
+    """``(d_total, d_bias3)``: the gate's total cotangent
+    ``d_gate + [k < n_real]·(d_mom[0] + 2·gate·d_mom[1])`` ([E, D]) and its
+    f32 column sum over all rows ([D])."""
+    if on_cpu(d_gate, gate, d_mom):
+        return gate_front_bwd_plain(d_gate, gate, d_mom, n_real)
+    check_cuda_args("gate_front_bwd", [d_gate, gate, d_mom], [])
+    n_rows, d = gate.shape
+    if d_gate.shape != gate.shape or d_mom.shape != (2, d):
+        raise ValueError("gate_front_bwd: shape mismatch")
+    n_parts = max(1, min(_MAX_PARTS, -(-n_rows // _ROW_TILE)))
+    d_total = torch.empty_like(gate)
+    partial = torch.empty((n_parts, d), dtype=torch.float32, device=gate.device)
+    d_bias3 = torch.empty((d,), dtype=torch.float32, device=gate.device)
+    GATE_FRONT_BWD(gate.device, d_gate.data_ptr(), gate.data_ptr(), d_mom.data_ptr(),
+                   d_total.data_ptr(), partial.data_ptr(), d_bias3.data_ptr(),
+                   n_rows, n_real, d, n_parts, int(vec4_ok(d, d_gate, gate, d_mom, d_total)))
+    return d_total, d_bias3
+
+
+class GateFront(torch.autograd.Function):
+    """:func:`gate_front` with the gradient of the JAX ``fused_gate_front``
+    (``gnnome_tpu/ops/segment.py:939-993``): ``d_b1h`` / ``d_b2h`` are the
+    by_src / by_dst segment sums of ``d_total``, ``d_e = d_total·W3ᵀ``,
+    ``d_W3 = eᵀ·d_total``, ``d_bias3 = Σ d_total``. Saves ``(gate, e, w3)``,
+    as ``_gate_front_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, b1h, b2h, e, w3, b3, src, dst, n_real: int,
+                by_src: CSR, by_dst: CSR):
+        gate, mom = gate_front(b1h, b2h, e, w3, b3, src, dst, n_real)
+        ctx.save_for_backward(gate, e, w3)
+        ctx.n_real, ctx.by_src, ctx.by_dst = n_real, by_src, by_dst
+        return gate, mom
+
+    @staticmethod
+    def backward(ctx, d_gate, d_mom):
+        gate, e, w3 = ctx.saved_tensors
+        d_total, d_bias3 = gate_front_bwd(d_gate.contiguous(), gate,
+                                          d_mom.contiguous(), ctx.n_real)
+        need = ctx.needs_input_grad
+        d_b1h = segment_sum(d_total, ctx.by_src) if need[0] else None
+        d_b2h = segment_sum(d_total, ctx.by_dst) if need[1] else None
+        d_e = d_total @ w3.T if need[2] else None
+        d_w3 = e.T @ d_total if need[3] else None
+        return d_b1h, d_b2h, d_e, d_w3, d_bias3, None, None, None, None, None

@@ -3,13 +3,17 @@
 Counterpart of ``gnnome_tpu/ops/banded.py:take_rows`` and its Pallas
 kernel ``banded_take_pallas``. The CUDA kernel is ``csrc/take.cu``; the
 plain version below is its CPU form and its reference on the card.
+:class:`TakeRows` gives the gather its gradient, the segment sum over the
+gathered endpoint's CSR (``gnnome_tpu/ops/segment.py:_gather_bwd``).
 """
 from __future__ import annotations
 
 import torch
 
+from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
     I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+from gnnome_tpu_torch.ops.segment_sum import segment_sum
 
 TAKE_ROWS = register(Kernel(
     "take_rows", "gnnome_take_rows_f32", [P, P, P, I64, I64, I32, I32],
@@ -35,3 +39,20 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     TAKE_ROWS(table.device, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
               ids.shape[0], n_rows, d, int(vec4_ok(d, table, out)))
     return out
+
+
+class TakeRows(torch.autograd.Function):
+    """``table[index]`` whose gradient is the segment sum of the cotangent
+    over ``csr``, the CSR keyed on ``index`` (``graph.src`` with
+    ``by_src``, ``graph.dst`` with ``by_dst``). Padded edges gather row 0
+    (their ids are clamped) but their cotangent rows are dropped, as the
+    JAX VJP drops them."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, index: torch.Tensor, csr: CSR):
+        ctx.csr = csr
+        return take_rows(table, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return segment_sum(g.contiguous(), ctx.csr), None, None

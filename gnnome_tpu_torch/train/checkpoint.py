@@ -1,4 +1,5 @@
-"""Model parameters in the JAX package's ``.npz`` format.
+"""Model parameters and training checkpoints in the JAX package's ``.npz``
+format.
 
 ``gnnome_tpu/train/checkpoint.py:24-38`` stores a parameter tree as one
 ``.npz`` of leaves keyed by JAX tree paths, e.g. ``['layers'][3]['A1']['w']``.
@@ -6,12 +7,23 @@ The port keeps the same tree (nested dicts and a list of layers) and the
 same weight layout (``w`` is ``[fan_in, fan_out]``), so a file moves between
 the packages key for key: :func:`params_from_jax` reads one,
 :func:`flatten_params` / :func:`save_params` write one.
+
+A training checkpoint (``gnnome_tpu/train/checkpoint.py:41-75``) is one
+``.npz`` of ``params``-prefixed parameter leaves and ``opt``-prefixed
+optimizer leaves, plus a ``<path>.json`` sidecar of scalars (epoch, lr,
+scheduler, loss histories). The optimizer leaves are those
+``optax.inject_hyperparams(optax.adam)`` flattens to; they map onto
+``torch.optim.Adam``'s state as ``mu`` → ``exp_avg``, ``nu`` →
+``exp_avg_sq``, ``count`` → ``step`` and ``hyperparams['learning_rate']``
+→ the group's lr (:func:`opt_state_to_jax`, :func:`opt_state_from_jax`),
+so a run resumes in either package from the other's checkpoint.
 """
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +121,88 @@ def _fill(template: Any, arrays: Dict[str, np.ndarray], prefix: str = "") -> Any
         return [_fill(v, arrays, f"{prefix}[{i}]") for i, v in enumerate(template)]
     return torch.from_numpy(np.array(arrays[prefix], copy=True)).to(
         device=template.device, dtype=template.dtype)
+
+
+_ADAM = ".inner_state[0]"  # optax.adam's ScaleByAdamState inside inject_hyperparams
+
+
+def opt_state_to_jax(opt: torch.optim.Adam, params: Any) -> Dict[str, np.ndarray]:
+    """``torch.optim.Adam`` state → the JAX package's optimizer-state arrays,
+    keyed as ``jax.tree_util.keystr`` names them (no ``opt`` prefix)."""
+    group = opt.param_groups[0]
+    b1, b2 = group["betas"]
+    out: Dict[str, np.ndarray] = {}
+    step = 0
+    for key, leaf in iter_leaves(params):
+        st = opt.state.get(leaf, {})
+        zeros = np.zeros(tuple(leaf.shape), np.float32)
+        out[f"{_ADAM}.mu{key}"] = st["exp_avg"].detach().cpu().numpy() if st else zeros
+        out[f"{_ADAM}.nu{key}"] = st["exp_avg_sq"].detach().cpu().numpy() if st else zeros
+        step = int(st["step"]) if st else 0
+    out[".count"] = out[f"{_ADAM}.count"] = np.int32(step)
+    hyper = {"b1": b1, "b2": b2, "eps": group["eps"], "eps_root": 0.0,
+             "learning_rate": group["lr"]}
+    for name, value in hyper.items():
+        out[f".hyperparams['{name}']"] = np.float32(value)
+    return out
+
+
+def opt_state_from_jax(arrays: Dict[str, np.ndarray], params: Any,
+                       opt: torch.optim.Adam) -> None:
+    """Load the JAX package's optimizer-state arrays (keys as
+    :func:`opt_state_to_jax` writes them) into ``opt``, whose parameters
+    are the leaves of ``params``."""
+    group = opt.param_groups[0]
+    group["lr"] = float(arrays[".hyperparams['learning_rate']"])
+    group["betas"] = (float(arrays[".hyperparams['b1']"]),
+                      float(arrays[".hyperparams['b2']"]))
+    group["eps"] = float(arrays[".hyperparams['eps']"])
+    if float(arrays[".hyperparams['eps_root']"]) != 0.0:
+        raise ValueError("torch.optim.Adam has no eps_root; the state needs eps_root=0")
+    step = int(arrays[f"{_ADAM}.count"])
+    opt.state.clear()
+    if step == 0:
+        return
+    for key, leaf in iter_leaves(params):
+        opt.state[leaf] = {
+            "step": torch.tensor(float(step), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(arrays[f"{_ADAM}.mu{key}"])).to(
+                device=leaf.device, dtype=leaf.dtype),
+            "exp_avg_sq": torch.from_numpy(np.array(arrays[f"{_ADAM}.nu{key}"])).to(
+                device=leaf.device, dtype=leaf.dtype),
+        }
+
+
+def save_checkpoint(path: str, params: Any, opt: torch.optim.Adam, epoch: int,
+                    scalars: Optional[Dict[str, Any]] = None) -> None:
+    """Write a training checkpoint the JAX package's ``load_checkpoint``
+    reads (npz via tmp + rename, then the JSON sidecar)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arrays = {f"params{k}": v for k, v in flatten_params(params).items()}
+    arrays.update({f"opt{k}": v for k, v in opt_state_to_jax(opt, params).items()})
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    with open(path + ".json", "w") as f:
+        json.dump({"epoch": epoch, **(scalars or {})}, f)
+
+
+def load_checkpoint(path: str, params: Any,
+                    opt: torch.optim.Adam) -> Tuple[int, Dict[str, Any]]:
+    """Restore a training checkpoint of either package into ``params`` (in
+    place, so ``opt`` keeps its parameters) and ``opt``. Returns
+    ``(epoch, meta)``; ``epoch`` is -1 when the file has no sidecar."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    with torch.no_grad():
+        for key, leaf in iter_leaves(params):
+            if f"params{key}" not in arrays:
+                raise KeyError(f"{path}: checkpoint missing leaf {key}")
+            leaf.copy_(torch.from_numpy(np.array(arrays[f"params{key}"])))
+    opt_state_from_jax({k[len("opt"):]: v for k, v in arrays.items()
+                        if k.startswith("opt")}, params, opt)
+    meta: Dict[str, Any] = {}
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    return int(meta.get("epoch", -1)), meta
