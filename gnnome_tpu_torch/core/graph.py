@@ -7,7 +7,8 @@ plus two CSR layouts over it:
 * ``by_dst``: canonical order itself, so forward aggregation walks
   ``offsets[v]:offsets[v+1]`` contiguously;
 * ``by_src``: a permutation ``order`` of canonical positions sorted
-  (stably) by source, for the reverse aggregation.
+  (stably) by source, for the reverse aggregation, with its inverse
+  ``inv_order`` and the opposite endpoint in that order, ``opp_ids``.
 
 Only what the GPU path reads is built. The JAX package's band plans,
 streaming plans and canonical-position bounds exist for the TPU's
@@ -46,13 +47,19 @@ class CSR:
     in this layout's sorted order, ``None`` when canonical order already is
     this layout. ``segment_ids``: ``key[order]`` (sorted). ``offsets``:
     int32[N_pad + 1]; ``offsets[v]:offsets[v+1]`` indexes the sorted
-    edges keyed on node ``v``.
+    edges keyed on node ``v``. ``inv_order``: int32[E_pad], the sorted
+    position of each canonical edge (``inv_order[order] = arange``).
+    ``opp_ids``: int32[E_pad], the opposite endpoint of each edge in sorted
+    order (``dst[order]`` for ``by_src``, padding clamped to 0). Both are
+    ``None`` when canonical order already is this layout.
     """
 
     key: torch.Tensor
     order: Optional[torch.Tensor]
     segment_ids: torch.Tensor
     offsets: torch.Tensor
+    inv_order: Optional[torch.Tensor] = None
+    opp_ids: Optional[torch.Tensor] = None
 
     @property
     def identity(self) -> bool:
@@ -104,8 +111,8 @@ def build_graph(
 ) -> AssemblyGraph:
     """Build an :class:`AssemblyGraph` from COO edge arrays in any order.
 
-    Host work is numpy (two stable argsorts and a searchsorted), linear in
-    the edge count apart from the sorts; tensors are then moved to
+    Host work is numpy (two stable argsorts, a searchsorted and two
+    permutations), linear in the edge count apart from the sorts; tensors are then moved to
     ``device``.
     """
     device = torch.device(device)
@@ -131,6 +138,8 @@ def build_graph(
     src_c, dst_c, dst_key_c = src_p[edge_perm], dst_p[edge_perm], dst_key[edge_perm]
     src_key_c = np.where(edge_mask, src_c, PAD_SEGMENT).astype(np.int32)
     src_order = np.argsort(src_key_c, kind="stable").astype(np.int32)
+    src_inv_order = np.empty_like(src_order)
+    src_inv_order[src_order] = np.arange(e_pad, dtype=np.int32)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -140,7 +149,8 @@ def build_graph(
                  offsets=t(_offsets(dst_key_c, n_pad)))
     src_sorted = src_key_c[src_order]
     by_src = CSR(key=t(src_key_c), order=t(src_order),
-                 segment_ids=t(src_sorted), offsets=t(_offsets(src_sorted, n_pad)))
+                 segment_ids=t(src_sorted), offsets=t(_offsets(src_sorted, n_pad)),
+                 inv_order=t(src_inv_order), opp_ids=t(dst_c[src_order]))
     return AssemblyGraph(
         n_nodes=n_nodes,
         n_edges=n_edges,

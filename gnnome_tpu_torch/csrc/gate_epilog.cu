@@ -1,16 +1,24 @@
 // GatedGCN gate epilog with the forward aggregation: per canonical edge k
 //   e_new[k] = relu(gate[k] * scale2 + bias2) + e_in[k]
 // and per destination node v, over its in-edges (CSR by_dst)
-//   sums[v] = [sum_k sigmoid(e_new[k]) * values[src[k]] || sum_k sigmoid(e_new[k])]
-// (f32 [N, 2D]). scale2/bias2 are the folded BatchNorm affine ([2, D]).
+//   sums[v] = [sum_k sigmoid(e_new[k]) * val(k) || sum_k sigmoid(e_new[k])]
+// (f32 [N, 2D]). scale2/bias2 are the folded BatchNorm affine ([2, D]). Two
+// entry points:
+//   gate_sigma_gather:    val(k) = values[src[k]], the node table gathered
+//                         inside the kernel;
+//   gate_sigma_aggregate: val(k) = vals[k], an [E, D] table already gathered
+//                         per edge (the wide-gather path's a2h[src] half).
 //
 // Replaces: gnnome_tpu/ops/spmm_pallas.py:fused_gate_sigma_gather_pallas
-// (one call per GatedGCN layer, 16 per forward).
+// (gate_sigma_gather; one call per GatedGCN layer, 16 per forward) and
+// fused_gate_sigma_aggregate_pallas (gate_sigma_aggregate; the same per
+// layer under wide_gathers).
 //
 // Bound on the H100: bytes. At E = 1M, D = 256, N = 150k: gate and e_in
-// read (2.05 GB), e_new written (1.02 GB), the values table (154 MB), the
-// sums written (307 MB), ids and offsets (5 MB): about 3.54 GB, 1.06 ms at
-// 3.35 TB/s. The arithmetic (one exp per element) is far below the line.
+// read (2.05 GB), e_new written (1.02 GB), the sums written (307 MB), ids and
+// offsets (5 MB), and the values table (154 MB): about 3.54 GB, 1.06 ms at
+// 3.35 TB/s; with pregathered rows (1.02 GB) in its place about 4.40 GB,
+// 1.31 ms. The arithmetic (one exp per element) is far below the line.
 //
 // Design: one warp per destination row. Canonical order is dst-sorted, so
 // the row's edges are the contiguous range offsets[v]:offsets[v+1]; the
@@ -23,8 +31,9 @@
 
 namespace {
 
-template <int VEC>
-__global__ void __launch_bounds__(128) gate_sigma_gather_kernel(
+// GATHER: the value row of edge k is values[src[k]], else vals[k]
+template <int VEC, bool GATHER>
+__device__ __forceinline__ void gate_epilog_rows(
     const float* __restrict__ gate, const float* __restrict__ e_in,
     const float* __restrict__ values, const float* __restrict__ affine,
     const int* __restrict__ offsets, const int* __restrict__ src,
@@ -43,7 +52,7 @@ __global__ void __launch_bounds__(128) gate_sigma_gather_kernel(
       float acc1[VEC] = {};
       float acc2[VEC] = {};
       for (int64_t k = beg; k < end; ++k) {
-        const int64_t so = (int64_t)src[k] * d;
+        const int64_t so = (GATHER ? (int64_t)src[k] : k) * d;
         float g[VEC], x[VEC], val[VEC], en[VEC];
         gnnome::load_vec<VEC>(gate + k * d + c, g);
         gnnome::load_vec<VEC>(e_in + k * d + c, x);
@@ -62,6 +71,20 @@ __global__ void __launch_bounds__(128) gate_sigma_gather_kernel(
     }
   }
 }
+
+#define GATE_EPILOG_KERNEL(NAME, GATHER)                                               \
+  template <int VEC>                                                                   \
+  __global__ void __launch_bounds__(128) NAME(                                         \
+      const float* __restrict__ gate, const float* __restrict__ e_in,                  \
+      const float* __restrict__ values, const float* __restrict__ affine,              \
+      const int* __restrict__ offsets, const int* __restrict__ src,                    \
+      float* __restrict__ sums, float* __restrict__ e_new, int64_t n_nodes, int d) {   \
+    gate_epilog_rows<VEC, GATHER>(gate, e_in, values, affine, offsets, src, sums,      \
+                                  e_new, n_nodes, d);                                  \
+  }
+
+GATE_EPILOG_KERNEL(gate_sigma_gather_kernel, true)
+GATE_EPILOG_KERNEL(gate_sigma_aggregate_kernel, false)
 
 // e_new for the padded edges [offsets[n_nodes], n_rows), which no row owns.
 template <int VEC>
@@ -95,9 +118,14 @@ int launch(const float* gate, const float* e_in, const float* values,
            float* sums, float* e_new, int64_t n_nodes, int64_t n_rows, int d,
            cudaStream_t s) {
   const int threads = 128;  // 4 rows per block
-  gate_sigma_gather_kernel<VEC><<<gnnome::grid_for(n_nodes * 32, threads),
-                                  threads, 0, s>>>(
-      gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes, d);
+  const unsigned grid = gnnome::grid_for(n_nodes * 32, threads);
+  if (src != nullptr) {
+    gate_sigma_gather_kernel<VEC><<<grid, threads, 0, s>>>(
+        gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes, d);
+  } else {
+    gate_sigma_aggregate_kernel<VEC><<<grid, threads, 0, s>>>(
+        gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes, d);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // the tail is usually empty: a small fixed grid, each thread reads the
@@ -107,6 +135,20 @@ int launch(const float* gate, const float* e_in, const float* values,
   return static_cast<int>(cudaGetLastError());
 }
 
+int dispatch(const float* gate, const float* e_in, const float* values,
+             const float* affine, const int* offsets, const int* src, float* sums,
+             float* e_new, int64_t n_nodes, int64_t n_rows, int d, int vec4,
+             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (d == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec4 ? launch<4>(gate, e_in, values, affine, offsets, src, sums, e_new,
+                          n_nodes, n_rows, d, s)
+              : launch<1>(gate, e_in, values, affine, offsets, src, sums, e_new,
+                          n_nodes, n_rows, d, s);
+}
+
 }  // namespace
 
 GNNOME_API int gnnome_gate_sigma_gather_f32(
@@ -114,12 +156,16 @@ GNNOME_API int gnnome_gate_sigma_gather_f32(
     const float* affine, const int* offsets, const int* src, float* sums,
     float* e_new, int64_t n_nodes, int64_t n_rows, int d, int vec4,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (d == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec4 ? launch<4>(gate, e_in, values, affine, offsets, src, sums,
-                          e_new, n_nodes, n_rows, d, s)
-              : launch<1>(gate, e_in, values, affine, offsets, src, sums,
-                          e_new, n_nodes, n_rows, d, s);
+  if (src == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes,
+                  n_rows, d, vec4, device, stream);
+}
+
+// vals: [n_rows, d], one pregathered value row per canonical edge
+GNNOME_API int gnnome_gate_sigma_aggregate_f32(
+    const float* gate, const float* e_in, const float* vals, const float* affine,
+    const int* offsets, float* sums, float* e_new, int64_t n_nodes, int64_t n_rows,
+    int d, int vec4, int device, void* stream) {
+  return dispatch(gate, e_in, vals, affine, offsets, nullptr, sums, e_new, n_nodes,
+                  n_rows, d, vec4, device, stream);
 }

@@ -26,12 +26,15 @@ from gnnome_tpu_torch.evaluation import assembly as asm
 from gnnome_tpu_torch.evaluation.metrics import classification_metrics, confusion_counts
 from gnnome_tpu_torch.models.model import init_model_params, model_forward
 from gnnome_tpu_torch.train.checkpoint import load_params
+from gnnome_tpu_torch.train.loop import resolve_perf
 
 
 @torch.inference_mode()
-def score_graph(params, graph, e_feat, pe, batch_norm: bool = True) -> torch.Tensor:
+def score_graph(params, graph, e_feat, pe, batch_norm: bool = True,
+                wide_gathers=False) -> torch.Tensor:
     """Per-edge logits in canonical order (f32[E_pad])."""
-    return model_forward(params, graph, e_feat, pe, batch_norm=batch_norm)
+    return model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
+                         wide_gathers=wide_gathers)
 
 
 def load_model(model_path: str, cfg: Config, device="cuda"):
@@ -72,7 +75,8 @@ def inference(
         g = sample.graph
         t0 = time.time()
         logits = score_graph(params, g, sample.e_feat, sample.pe,
-                             batch_norm=cfg.model.batch_norm)
+                             batch_norm=cfg.model.batch_norm,
+                             wide_gathers=resolve_perf(cfg.train, g)[0])
         # device scores are canonical-order; decode indexes parser order
         scores = extract_edge_values(g, logits).astype(np.float64)
         log_fn(f"graph {idx}: scored {g.n_edges} edges in {time.time()-t0:.2f}s")

@@ -14,29 +14,48 @@ The gate is computed once and shared by both directions: in the
 reference's live path the "backward" gate on the reversed graph evaluates
 the same expression with the same normalizer.
 
-The ``batch_norm=True`` branch (the shipped models) runs the three kernels
-of the layer: gate front (gather + B3 product + moments), gate epilog with
-the forward aggregation, and the reverse aggregation; their backward
-kernels give it its gradient, and the BatchNorm statistics taken from
-``mom`` stay plain autograd, which carries ``d_mom`` into the gate front's
-backward. The ``batch_norm=False`` branch uses plain PyTorch functions
-(differentiable by autograd): it has no kernel yet.
+Every branch runs on kernels, following the JAX layer line by line
+(``gnnome_tpu/models/gated_gcn.py:95-239``):
+
+* ``batch_norm=True`` (the shipped models): gate front (gather + B3
+  product + moments), gate epilog with the forward aggregation, and the
+  reverse aggregation; the BatchNorm statistics taken from ``mom`` stay
+  plain autograd, which carries ``d_mom`` into the gate front's backward;
+* ``batch_norm=False`` (LayerNorm): the two endpoint gathers (row gather
+  kernel, segment-sum backward) plus ``B3·e``, the LayerNorm, the forward
+  aggregation with the gather inside the σ-aggregate kernel, and the
+  reverse aggregation;
+* ``wide_gathers`` (``True`` / ``"src"``): the endpoint tables are gathered
+  in pairs at width 2D (``[b1h‖a2h]`` by src, ``[b2h‖a3h]`` by dst, or
+  ``b2h`` alone for ``"src"``), the BatchNorm statistics come from
+  ``masked_moments(gate)``, and the epilog and aggregations read the
+  pregathered halves.
+
+Every sum on these paths is a fixed-order CSR walk (no float atomics), so
+a checkpointed layer's recompute reproduces its forward bit for bit.
+Dropout, as in JAX, is applied to ``h`` after the residual when a rate and
+a generator are given.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from gnnome_tpu_torch.core.graph import AssemblyGraph
 from gnnome_tpu_torch.models.common import init_linear, init_norm, linear
-from gnnome_tpu_torch.ops.norm import masked_batch_norm, masked_layer_norm
+from gnnome_tpu_torch.ops.norm import masked_batch_norm, masked_layer_norm, masked_moments
 from gnnome_tpu_torch.ops.segment import (
     fused_gate_front,
+    fused_gate_sigma_aggregate,
     fused_gate_sigma_gather,
+    gated_aggregate,
+    gated_aggregate_pregathered,
     gated_mean_by_src,
-    gated_mean_plain,
+    gather_by_endpoint,
 )
+
+WIDE_GATHERS = (False, True, "src")
 
 
 def init_gated_gcn_layer(gen: torch.Generator, dim: int, device="cuda") -> Dict:
@@ -49,7 +68,13 @@ def init_gated_gcn_layer(gen: torch.Generator, dim: int, device="cuda") -> Dict:
 
 def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
                     e: torch.Tensor, batch_norm: bool = True,
-                    eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+                    dropout_rate: float = 0.0,
+                    dropout_rng: Optional[torch.Generator] = None,
+                    eps: float = 1e-6,
+                    wide_gathers=False) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer; ``dropout_rng`` is a generator on ``h``'s device."""
+    if wide_gathers not in WIDE_GATHERS:
+        raise ValueError(f"wide_gathers={wide_gathers!r}; one of {WIDE_GATHERS}")
     h_in, e_in = h, e
     d = h.shape[-1]
     a1h = linear(params["A1"], h)
@@ -58,25 +83,57 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
     b1h = linear(params["B1"], h)
     b2h = linear(params["B2"], h)
 
-    if batch_norm:
+    a3_dst = mom = None
+    if batch_norm and not wide_gathers:
         gate, mom = fused_gate_front(b1h, b2h, e, params["B3"]["w"],
                                      params["B3"]["b"], graph)
-        cnt = float(max(graph.n_edges, 1))
-        mean = mom[0] / cnt
-        var = torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
+    elif wide_gathers:
+        b3e = linear(params["B3"], e)
+        src_rows = gather_by_endpoint(torch.cat([b1h, a2h], dim=-1), graph.src,
+                                      graph.by_src)
+        if wide_gathers == "src":
+            dst_rows = gather_by_endpoint(b2h, graph.dst, graph.by_dst)
+            gate = src_rows[:, :d] + dst_rows + b3e
+        else:
+            dst_rows = gather_by_endpoint(torch.cat([b2h, a3h], dim=-1), graph.dst,
+                                          graph.by_dst)
+            gate = src_rows[:, :d] + dst_rows[:, :d] + b3e
+            a3_dst = dst_rows[:, d:]
+        a2_src = src_rows[:, d:]
+    else:
+        gate = (gather_by_endpoint(b1h, graph.src, graph.by_src)
+                + gather_by_endpoint(b2h, graph.dst, graph.by_dst)
+                + linear(params["B3"], e))
+
+    if batch_norm:
+        if mom is not None:
+            cnt = float(max(graph.n_edges, 1))
+            mean = mom[0] / cnt
+            var = torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
+        else:
+            mean, var = masked_moments(gate, graph.edge_mask)
         scale2 = torch.rsqrt(var + 1e-5) * params["norm_e"]["scale"]
         bias2 = params["norm_e"]["bias"] - mean * scale2
         affine = torch.stack([scale2, bias2])
-        sum_f, e_new = fused_gate_sigma_gather(gate, e_in, a2h, affine, graph)
+        if wide_gathers:
+            sum_f, e_new = fused_gate_sigma_aggregate(gate, e_in, a2_src, affine,
+                                                      graph.by_dst)
+        else:
+            sum_f, e_new = fused_gate_sigma_gather(gate, e_in, a2h, affine, graph)
         h_fwd = sum_f[:, :d] / (sum_f[:, d:] + eps)
-        h_bwd = gated_mean_by_src(a3h, e_new, graph, eps)
     else:
-        gate = b1h[graph.src] + b2h[graph.dst] + linear(params["B3"], e)
         gate = masked_layer_norm(gate, params["norm_e"]["scale"],
                                  params["norm_e"]["bias"])
         e_new = torch.relu(gate) + e_in
-        h_fwd = gated_mean_plain(a2h, e_new, graph.src, graph.by_dst.key, eps)
-        h_bwd = gated_mean_plain(a3h, e_new, graph.dst, graph.by_src.key, eps)
+        if wide_gathers:
+            h_fwd = gated_aggregate_pregathered(a2_src, e_new, graph.by_dst, eps)
+        else:
+            h_fwd = gated_aggregate(a2h, e_new, graph.src, graph.by_src, graph.by_dst,
+                                    eps)
+    if a3_dst is not None:
+        h_bwd = gated_aggregate_pregathered(a3_dst, e_new, graph.by_src, eps)
+    else:
+        h_bwd = gated_mean_by_src(a3h, e_new, graph, eps)
 
     h = a1h + h_fwd.to(h_in.dtype) + h_bwd.to(h_in.dtype)
     if batch_norm:
@@ -84,4 +141,9 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
                               params["norm_h"]["bias"])
     else:
         h = masked_layer_norm(h, params["norm_h"]["scale"], params["norm_h"]["bias"])
-    return torch.relu(h) + h_in, e_new
+    h = torch.relu(h) + h_in
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        keep = torch.rand(h.shape, generator=dropout_rng, device=h.device) \
+            < 1.0 - dropout_rate
+        h = torch.where(keep, h / (1.0 - dropout_rate), 0.0)
+    return h, e_new

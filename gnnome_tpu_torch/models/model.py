@@ -10,14 +10,14 @@ Counterpart of ``gnnome_tpu/models/model.py``; reference
     ``hidden_edge_scores`` → 1 (``layers/score_predictor.py:5-25``).
 
 Parameters are a plain dictionary with the JAX package's tree layout
-(see ``train/checkpoint.py``). Differentiable end to end on the
-``batch_norm=True`` branch (every sparse op through its backward kernels);
-``remat`` trades activation memory for a recomputed forward, as in the JAX
-package. No dropout yet.
+(see ``train/checkpoint.py``). Differentiable end to end on every branch
+(BatchNorm or LayerNorm, narrow or wide gathers; every sparse op through
+its backward kernels); ``remat`` trades activation memory for a recomputed
+forward, and dropout follows the JAX package's API, as there.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -63,19 +63,35 @@ def score_predictor(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
 REMAT_MODES = ("none", "layer", "group", "unroll_group")
 
 
-def _layer_stack(layers, graph: AssemblyGraph, h, e, batch_norm: bool):
+def _layer_stack(layers, graph: AssemblyGraph, h, e, batch_norm: bool, wide_gathers):
     for lp in layers:
-        h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm)
+        h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
+                               wide_gathers=wide_gathers)
     return h, e
+
+
+def _layer_rng(rng: torch.Generator, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``rng``: one stream per layer,
+    as the JAX package folds the layer index into its key."""
+    seed = int(torch.randint(0, 2**62, (), generator=rng))
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
                   pe: torch.Tensor, batch_norm: bool = True, remat: str = "layer",
-                  remat_group: int = 4) -> torch.Tensor:
+                  remat_group: int = 4, wide_gathers=False, dropout_rate: float = 0.0,
+                  dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Per-edge logits, f32[E_pad] in canonical order (rows past
     ``graph.n_edges`` are padding). ``e_feat``: f32[E_pad, 2] z-normed
     [overlap_length, overlap_similarity]; ``pe``: f32[N_pad, nb_pos_enc + 2]
-    = [in_deg ‖ out_deg ‖ PageRank PE].
+    = [in_deg ‖ out_deg ‖ PageRank PE]. ``wide_gathers``: False, True or
+    ``"src"`` (``models/gated_gcn.py``).
+
+    Dropout (``dropout_rate`` > 0 with a ``dropout_rng``, a CPU generator
+    in place of JAX's ``dropout_rng`` key) runs the layers as a plain loop,
+    each layer on its own stream drawn from ``dropout_rng``, outside any
+    checkpoint (``gnnome_tpu/models/model.py:155-158``). Torch's streams are
+    not JAX's: the same seed gives other masks.
 
     ``remat`` sets what the backward keeps (``gnnome_tpu/models/model.py``):
       * ``"none"``: every layer's intermediates;
@@ -98,15 +114,22 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
     e = torch.relu(linear(params["linear1_edge"], e_feat))
     e = linear(params["linear2_edge"], e)
     layers = params["layers"]
-    if remat == "none" or not torch.is_grad_enabled():
+    if dropout_rng is not None and dropout_rate > 0.0:
+        for lp in layers:
+            h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
+                                   dropout_rate=dropout_rate,
+                                   dropout_rng=_layer_rng(dropout_rng, h.device),
+                                   wide_gathers=wide_gathers)
+    elif remat == "none" or not torch.is_grad_enabled():
         # rebinding h, e frees each layer's input once nothing saved it
         for lp in layers:
-            h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm)
+            h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
+                                   wide_gathers=wide_gathers)
     else:
         g = 1 if remat == "layer" or len(layers) % remat_group else remat_group
         for i in range(0, len(layers), g):
             h, e = checkpoint(_layer_stack, layers[i: i + g], graph, h, e, batch_norm,
-                              use_reentrant=False)
+                              wide_gathers, use_reentrant=False)
     return score_predictor(params, graph, h, e).to(torch.float32)
 
 

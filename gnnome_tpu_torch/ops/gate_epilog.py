@@ -1,13 +1,19 @@
 """GatedGCN gate epilog fused with the forward (by-destination) σ-weighted
-aggregation and its neighbour gather.
+aggregation, with its neighbour gather or over pregathered value rows.
 
-Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:fused_gate_sigma_gather_pallas``.
-The CUDA kernel is ``csrc/gate_epilog.cu``; the plain version below is its
-CPU form and its reference on the card. Its backward
-(:class:`GateSigmaGather`, the JAX ``_fused_gate_gather_bwd``) runs
-``csrc/epilog_bwd.cu`` (``epilog_bwd_pallas``) and the by_src segment sum.
+Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:fused_gate_sigma_gather_pallas``
+(``src`` given: the values are a node table read at ``src[k]``) and
+``fused_gate_sigma_aggregate_pallas`` (no ``src``: an ``[E, D]`` table of
+value rows per canonical edge, the wide-gather path). The CUDA kernels are
+``csrc/gate_epilog.cu``; the plain version below is their CPU form and
+their reference on the card. The backward (:class:`GateSigmaGather`, the
+JAX ``_fused_gate_gather_bwd`` and ``_fused_gate_bwd``) runs
+``csrc/epilog_bwd.cu`` (``epilog_bwd_pallas``, or its pregathered entry for
+the XLA VJP of the second), then, with ``src``, the by_src segment sum.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,11 +28,22 @@ GATE_SIGMA_GATHER = register(Kernel(
     [P, P, P, P, P, P, P, P, I64, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_epilog.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:3020 fused_gate_sigma_gather_pallas"))
+GATE_SIGMA_AGGREGATE = register(Kernel(
+    "gate_sigma_aggregate", "gnnome_gate_sigma_aggregate_f32",
+    [P, P, P, P, P, P, P, I64, I64, I32, I32],
+    source="gnnome_tpu_torch/csrc/gate_epilog.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:3156 fused_gate_sigma_aggregate_pallas"))
 EPILOG_BWD = register(Kernel(
     "epilog_bwd", "gnnome_epilog_bwd_f32",
     [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
     source="gnnome_tpu_torch/csrc/epilog_bwd.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:1550 epilog_bwd_pallas"))
+EPILOG_BWD_PREGATHERED = register(Kernel(
+    "epilog_bwd_pregathered", "gnnome_epilog_bwd_pregathered_f32",
+    [P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    source="gnnome_tpu_torch/csrc/epilog_bwd.cu",
+    replaces="gnnome_tpu/ops/segment.py:1057 _fused_gate_bwd (the VJP of "
+             "fused_gate_sigma_aggregate_pallas)"))
 
 # blocks of 8 warps that walk the destination rows (csrc/epilog_bwd.cu);
 # each leaves one partial d_affine row, summed in a fixed order
@@ -34,12 +51,16 @@ _ROWS_PER_BLOCK = 8
 _MAX_PARTS = 1024
 
 
-def gate_sigma_gather_plain(gate, e_in, values, affine, by_dst: CSR, src):
-    n, d = values.shape
+def _value_rows(values, src):
+    return values if src is None else values[src]
+
+
+def gate_sigma_gather_plain(gate, e_in, values, affine, by_dst: CSR, src=None):
+    n, d = by_dst.offsets.shape[0] - 1, gate.shape[1]
     pre = gate * affine[0] + affine[1]
     e_new = torch.relu(pre) + e_in
     sigma = torch.sigmoid(e_new)
-    stacked = torch.cat([sigma * values[src], sigma], dim=-1)
+    stacked = torch.cat([sigma * _value_rows(values, src), sigma], dim=-1)
     valid = by_dst.key < n
     sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=values.device)
     sums.index_add_(0, by_dst.key[valid], stacked[valid])
@@ -48,40 +69,43 @@ def gate_sigma_gather_plain(gate, e_in, values, affine, by_dst: CSR, src):
 
 def gate_sigma_gather(gate: torch.Tensor, e_in: torch.Tensor,
                       values: torch.Tensor, affine: torch.Tensor,
-                      by_dst: CSR, src: torch.Tensor):
+                      by_dst: CSR, src: Optional[torch.Tensor] = None):
     """``(sums, e_new)``: ``e_new = relu(gate·affine[0] + affine[1]) + e_in``
     per canonical edge, and per destination node
-    ``sums = [Σ σ(e_new)·values[src] ‖ Σ σ(e_new)]`` (f32 [N, 2D]) over its
-    in-edges; padded edges (key ``PAD_SEGMENT``) join no sum. ``by_dst``
-    must be the canonical (identity) layout."""
+    ``sums = [Σ σ(e_new)·v ‖ Σ σ(e_new)]`` (f32 [N, 2D]) over its in-edges,
+    with ``v = values[src]`` (node table) or, without ``src``, ``values``
+    itself ([E, D] pregathered rows, ``gate_sigma_aggregate``); padded edges
+    (key ``PAD_SEGMENT``) join no sum. ``by_dst`` must be the canonical
+    (identity) layout."""
     if not by_dst.identity:
         raise ValueError("gate_sigma_gather runs on the canonical (by_dst) layout")
-    if on_cpu(gate, e_in, values, affine, by_dst.key, by_dst.offsets, src):
+    extra = [] if src is None else [src]
+    if on_cpu(gate, e_in, values, affine, by_dst.key, by_dst.offsets, *extra):
         return gate_sigma_gather_plain(gate, e_in, values, affine, by_dst, src)
-    check_cuda_args("gate_sigma_gather", [gate, e_in, values, affine],
-                    [by_dst.offsets, src])
-    n, d = values.shape
-    n_rows = gate.shape[0]
-    if by_dst.offsets.shape[0] != n + 1 or gate.shape != e_in.shape \
-            or gate.shape[1] != d or affine.shape != (2, d):
-        raise ValueError("gate_sigma_gather: shape mismatch")
+    kernel = GATE_SIGMA_AGGREGATE if src is None else GATE_SIGMA_GATHER
+    check_cuda_args(kernel.name, [gate, e_in, values, affine], [by_dst.offsets, *extra])
+    n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate.shape
+    # a node table has a row per node, pregathered values one per edge
+    if gate.shape != e_in.shape or affine.shape != (2, d) \
+            or values.shape != (n_rows if src is None else n, d):
+        raise ValueError(f"{kernel.name}: shape mismatch")
     sums = torch.empty((n, 2 * d), dtype=torch.float32, device=gate.device)
     e_new = torch.empty_like(e_in)
-    vec4 = vec4_ok(d, gate, e_in, values, affine, sums, e_new)
-    GATE_SIGMA_GATHER(gate.device, gate.data_ptr(), e_in.data_ptr(),
-                      values.data_ptr(), affine.data_ptr(),
-                      by_dst.offsets.data_ptr(), src.data_ptr(),
-                      sums.data_ptr(), e_new.data_ptr(), n, n_rows, d, int(vec4))
+    vec4 = int(vec4_ok(d, gate, e_in, values, affine, sums, e_new))
+    ptrs = [gate.data_ptr(), e_in.data_ptr(), values.data_ptr(), affine.data_ptr(),
+            by_dst.offsets.data_ptr(), *(t.data_ptr() for t in extra)]
+    kernel(gate.device, *ptrs, sums.data_ptr(), e_new.data_ptr(), n, n_rows, d, vec4)
     return sums, e_new
 
 
-def epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst: CSR, src):
-    d = values.shape[1]
+def epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst: CSR,
+                     src=None):
+    d = gate_raw.shape[1]
     gc = take_rows_plain(g_sums, by_dst.key)  # zero rows on padded edges
     g1, g2 = gc[:, :d], gc[:, d:]
     pre = gate_raw * affine[0] + affine[1]
     sig = torch.sigmoid(e_new)
-    d_enew = g_enew + (g1 * values[src] + g2) * (sig * (1.0 - sig))
+    d_enew = g_enew + (g1 * _value_rows(values, src) + g2) * (sig * (1.0 - sig))
     d_pre = d_enew * (pre > 0)
     d_affine = torch.stack([(d_pre * gate_raw).sum(0), d_pre.sum(0)])
     return d_pre * affine[0], d_enew, g1 * sig, d_affine
@@ -89,47 +113,54 @@ def epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst: CS
 
 def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor,
                g_sums: torch.Tensor, values: torch.Tensor, affine: torch.Tensor,
-               by_dst: CSR, src: torch.Tensor):
+               by_dst: CSR, src: Optional[torch.Tensor] = None):
     """``(d_gate_raw, d_e_in, d_vals, d_affine)``: the cotangents of
     :func:`gate_sigma_gather`'s inputs per canonical edge, given those of
     its outputs (``g_sums`` [N, 2D], ``g_enew`` [E, D]); ``d_vals`` is per
-    edge (its by_src segment sum is ``d_values``) and ``d_affine`` ([2, D])
-    is summed over all rows, padded ones included."""
+    edge (with ``src``, its by_src segment sum is ``d_values``; without, it
+    is the gradient of the pregathered rows) and ``d_affine`` ([2, D]) is
+    summed over all rows, padded ones included."""
     if not by_dst.identity:
         raise ValueError("epilog_bwd runs on the canonical (by_dst) layout")
+    extra = [] if src is None else [src]
     if on_cpu(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst.key,
-              by_dst.offsets, src):
+              by_dst.offsets, *extra):
         return epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine,
                                 by_dst, src)
+    kernel = EPILOG_BWD_PREGATHERED if src is None else EPILOG_BWD
     floats = [gate_raw, e_new, g_enew, g_sums, values, affine]
-    check_cuda_args("epilog_bwd", floats, [by_dst.offsets, src])
-    n, d = values.shape
-    n_rows = gate_raw.shape[0]
-    if by_dst.offsets.shape[0] != n + 1 or not (gate_raw.shape == e_new.shape
-                                                 == g_enew.shape) \
-            or gate_raw.shape[1] != d or g_sums.shape != (n, 2 * d) \
-            or affine.shape != (2, d):
-        raise ValueError("epilog_bwd: shape mismatch")
+    check_cuda_args(kernel.name, floats, [by_dst.offsets, *extra])
+    n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate_raw.shape
+    if not (gate_raw.shape == e_new.shape == g_enew.shape) \
+            or values.shape != (n_rows if src is None else n, d) \
+            or g_sums.shape != (n, 2 * d) or affine.shape != (2, d):
+        raise ValueError(f"{kernel.name}: shape mismatch")
     n_parts = max(1, min(_MAX_PARTS, -(-(n + 1) // _ROWS_PER_BLOCK)))
     d_gate_raw, d_e_in, d_vals = (torch.empty_like(gate_raw) for _ in range(3))
     partial = torch.empty((n_parts, 2, d), dtype=torch.float32, device=gate_raw.device)
     d_affine = torch.empty((2, d), dtype=torch.float32, device=gate_raw.device)
     vec4 = vec4_ok(d, *floats, d_gate_raw, d_e_in, d_vals)
-    EPILOG_BWD(gate_raw.device, *(t.data_ptr() for t in floats),
-               by_dst.offsets.data_ptr(), src.data_ptr(), d_gate_raw.data_ptr(),
-               d_e_in.data_ptr(), d_vals.data_ptr(), partial.data_ptr(),
-               d_affine.data_ptr(), n, n_rows, d, n_parts, int(vec4))
+    kernel(gate_raw.device, *(t.data_ptr() for t in floats), by_dst.offsets.data_ptr(),
+           *(t.data_ptr() for t in extra), d_gate_raw.data_ptr(), d_e_in.data_ptr(),
+           d_vals.data_ptr(), partial.data_ptr(), d_affine.data_ptr(), n, n_rows, d,
+           n_parts, int(vec4))
     return d_gate_raw, d_e_in, d_vals, d_affine
 
 
 class GateSigmaGather(torch.autograd.Function):
     """:func:`gate_sigma_gather` with the gradient of the JAX
-    ``fused_gate_sigma_gather`` (``gnnome_tpu/ops/segment.py:804-850``).
-    Saves ``(gate_raw, e_new, values, affine)``: ``e_new``, the forward's
-    own output, in place of ``e_in``, as ``_fused_gate_gather_fwd`` does."""
+    ``fused_gate_sigma_gather`` (``gnnome_tpu/ops/segment.py:804-850``), or,
+    with ``src`` and ``by_src`` None, of ``fused_gate_sigma_aggregate``
+    (``:1057-1085``: ``d_vals`` is then the gradient of the pregathered
+    rows). Saves ``(gate_raw, e_new, values, affine)``: ``e_new``, the
+    forward's own output, in place of ``e_in``, as
+    ``_fused_gate_gather_fwd`` does (``_fused_gate_fwd`` recomputes it from
+    ``e_in``; the values are the same); a strided slice of a wider table
+    (the wide-gather pairs) is copied to contiguous rows first."""
 
     @staticmethod
-    def forward(ctx, gate, e_in, values, affine, by_dst: CSR, src, by_src: CSR):
+    def forward(ctx, gate, e_in, values, affine, by_dst: CSR, src, by_src: Optional[CSR]):
+        values = values.contiguous()
         sums, e_new = gate_sigma_gather(gate, e_in, values, affine, by_dst, src)
         ctx.save_for_backward(gate, e_new, values, affine)
         ctx.by_dst, ctx.src, ctx.by_src = by_dst, src, by_src
@@ -141,5 +172,6 @@ class GateSigmaGather(torch.autograd.Function):
         d_gate, d_e_in, d_vals, d_affine = epilog_bwd(
             gate, e_new, g_enew.contiguous(), g_sums.contiguous(), values, affine,
             ctx.by_dst, ctx.src)
-        d_values = segment_sum(d_vals, ctx.by_src) if ctx.needs_input_grad[2] else None
-        return d_gate, d_e_in, d_values, d_affine, None, None, None
+        if ctx.src is not None:
+            d_vals = segment_sum(d_vals, ctx.by_src) if ctx.needs_input_grad[2] else None
+        return d_gate, d_e_in, d_vals, d_affine, None, None, None

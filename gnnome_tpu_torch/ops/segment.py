@@ -2,10 +2,13 @@
 
 Counterpart of ``gnnome_tpu/ops/segment.py``: each function takes the
 :class:`AssemblyGraph` fields it needs and runs one kernel (``ops/take.py``,
-``ops/gate_front.py``, ``ops/gate_epilog.py``, ``ops/reverse_sum.py``), or
-that kernel's plain version for CPU tensors, through a
-``torch.autograd.Function`` whose backward is the JAX package's custom VJP
-on the backward kernels (``ops/segment_sum.py`` and the ``*_bwd`` kernels).
+``ops/gate_front.py``, ``ops/gate_epilog.py``, ``ops/sigma_aggregate.py``,
+``ops/reverse_sum.py``), or that kernel's plain version for CPU tensors,
+through a ``torch.autograd.Function`` whose backward is the JAX package's
+custom VJP on the backward kernels (``ops/segment_sum.py`` and the
+``*_bwd`` kernels). Functions named as in the JAX package take its
+arguments' meanings; the per-edge key arrays and ``num_segments`` are not
+passed, since each :class:`CSR` carries its ``key`` and ``offsets``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import torch
 from gnnome_tpu_torch.core.graph import CSR, AssemblyGraph
 from gnnome_tpu_torch.ops.gate_epilog import GateSigmaGather
 from gnnome_tpu_torch.ops.gate_front import GateFront
-from gnnome_tpu_torch.ops.reverse_sum import SigmaReverseSum
+from gnnome_tpu_torch.ops.reverse_sum import SigmaOpposite, SigmaReverseSum
+from gnnome_tpu_torch.ops.sigma_aggregate import SigmaAggregate
 from gnnome_tpu_torch.ops.take import TakeRows
 
 
@@ -43,27 +47,60 @@ def fused_gate_sigma_gather(gate, e_in, values, affine, graph: AssemblyGraph):
                                  graph.src, graph.by_src)
 
 
+def fused_gate_sigma_aggregate(gate_raw, e_in, vals, affine, csr: CSR):
+    """``(sums, e_new)`` as :func:`fused_gate_sigma_gather`, over ``vals``
+    ([E, D]) already gathered per canonical edge (the wide-gather path);
+    ``csr`` must be the canonical by_dst layout. Its gradient with respect
+    to ``vals`` is per edge: the gather that made them sums it."""
+    return GateSigmaGather.apply(gate_raw, e_in, vals, affine, csr, None, None)
+
+
+def _mean(sums: torch.Tensor, eps: float) -> torch.Tensor:
+    d = sums.shape[-1] // 2
+    return sums[:, :d] / (sums[:, d:] + eps)
+
+
+def gated_aggregate(values: torch.Tensor, gate_pre: torch.Tensor,
+                    value_index: torch.Tensor, value_csr_t: CSR, csr: CSR,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """σ-weighted mean per key node of ``csr``,
+    ``Σ σ(gate_pre)·values[value_index] / (Σ σ(gate_pre) + eps)``, with the
+    neighbour gather inside the kernel; ``value_csr_t`` is the CSR keyed on
+    ``value_index`` (its segment sum is the gather's gradient). By_dst with
+    ``value_index = src`` is the LayerNorm layer's forward aggregation;
+    by_src with ``dst`` is the reverse aggregation (:func:`gated_mean_by_src`)."""
+    fn = SigmaAggregate if csr.identity else SigmaReverseSum
+    return _mean(fn.apply(gate_pre, values, csr, value_index, value_csr_t), eps)
+
+
+def gated_aggregate_pregathered(vals: torch.Tensor, gate_pre: torch.Tensor, csr: CSR,
+                                eps: float = 1e-6) -> torch.Tensor:
+    """:func:`gated_aggregate` when the value rows are already gathered per
+    canonical edge ([E, D], e.g. a half of a paired wide-row gather); the
+    gradient with respect to ``vals`` is per edge."""
+    return _mean(SigmaAggregate.apply(gate_pre, vals, csr, None, None), eps)
+
+
+def _fused_sigma_opposite(values: torch.Tensor, gate_pre: torch.Tensor, csr: CSR,
+                          by_opp: CSR) -> torch.Tensor:
+    """``[Σ σ(gate_pre[order])·values[opp_ids] ‖ Σ σ]`` (f32 [N, 2D]) per key
+    node of ``csr`` (by_src), both gathers inside one kernel; ``by_opp`` is
+    the by_dst layout the value gradient is summed over."""
+    return SigmaOpposite.apply(values, gate_pre, csr, by_opp)
+
+
+def gated_aggregate_opposite(values: torch.Tensor, gate_pre: torch.Tensor, csr: CSR,
+                             by_opp: CSR, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`gated_aggregate` keyed on ``csr`` (by_src) with the neighbour
+    rows read in src-sorted order (``csr.opp_ids``). The same function as
+    :func:`gated_mean_by_src`, which the model uses on every graph."""
+    return _mean(_fused_sigma_opposite(values, gate_pre, csr, by_opp), eps)
+
+
 def gated_mean_by_src(values: torch.Tensor, e_new: torch.Tensor,
                       graph: AssemblyGraph, eps: float = 1e-6) -> torch.Tensor:
     """Reverse-direction gated mean over each node's out-edges,
     ``Σ σ(e_new)·values[dst] / (Σ σ(e_new) + eps)`` — the aggregation on the
     reversed graph (``layers/gated_gcn_full.py:133-143``). Replaces the JAX
     package's ``gated_aggregate_reverse_unsorted``, on every graph."""
-    d = values.shape[-1]
-    sums = SigmaReverseSum.apply(e_new, values, graph.by_src, graph.dst, graph.by_dst)
-    return sums[:, :d] / (sums[:, d:] + eps)
-
-
-def gated_mean_plain(values: torch.Tensor, e_new: torch.Tensor,
-                     value_index: torch.Tensor, key: torch.Tensor,
-                     eps: float = 1e-6) -> torch.Tensor:
-    """``Σ σ(e_new)·values[value_index] / (Σ σ(e_new) + eps)`` per key node,
-    in plain PyTorch on any device (index_add_). Only the
-    ``batch_norm=False`` layer uses it; that branch has no kernel yet."""
-    n, d = values.shape
-    sigma = torch.sigmoid(e_new.to(torch.float32))
-    stacked = torch.cat([sigma * values[value_index], sigma], dim=-1)
-    valid = key < n
-    sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=values.device)
-    sums.index_add_(0, key[valid], stacked[valid])
-    return sums[:, :d] / (sums[:, d:] + eps)
+    return gated_aggregate(values, e_new, graph.dst, graph.by_dst, graph.by_src, eps)

@@ -1,0 +1,160 @@
+"""GatedGCN σ-weighted aggregation over a CSR, with the value rows either
+gathered from a node table inside the kernel or pregathered per edge.
+
+Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:fused_sigma_aggregate_pallas``
+and the custom VJP around it (``gnnome_tpu/ops/segment.py:
+_fused_sigma_aggregate``, whose backward ``_fused_bwd`` is gather-only). The
+CUDA kernels are ``csrc/sigma_aggregate.cu``; the plain versions below are
+their CPU form and their reference on the card. Three forms:
+
+* by_dst with ``ids`` (a node table read at ``ids[k]``): the LayerNorm
+  layer's forward aggregation, ``a2h[src]`` gathered in the kernel;
+* by_dst pregathered: an ``[E, D]`` table of value rows per canonical edge;
+* by_src pregathered: the same, walked through ``by_src.order``.
+
+A by_src walk over a node table is the reverse aggregation of
+``ops/reverse_sum.py``, the TPU's ``fused_sigma_unsorted_pallas``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from gnnome_tpu_torch.core.graph import CSR
+from gnnome_tpu_torch.ops.cuda_lib import (
+    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+from gnnome_tpu_torch.ops.segment_sum import segment_sum
+from gnnome_tpu_torch.ops.take import take_rows_plain
+
+_SOURCE = "gnnome_tpu_torch/csrc/sigma_aggregate.cu"
+_FWD = "gnnome_tpu/ops/spmm_pallas.py:1247 fused_sigma_aggregate_pallas"
+_BWD = ("gnnome_tpu/ops/segment.py:255 _fused_bwd (the VJP of "
+        "fused_sigma_aggregate_pallas)")
+_FWD_ARGS = [P, P, P, P, P, P, I64, I32, I32]
+_BWD_ARGS = [P, P, P, P, P, P, P, P, I64, I64, I32, I32]
+
+# one counter per form; each pair of forms shares its C entry point, which
+# picks the form from the null pointers (order: by_dst, ids: pregathered)
+SIGMA_AGGREGATE_GATHER = register(Kernel(
+    "sigma_aggregate_gather", "gnnome_sigma_aggregate_f32", _FWD_ARGS, _SOURCE, _FWD))
+SIGMA_AGGREGATE = register(Kernel(
+    "sigma_aggregate", "gnnome_sigma_aggregate_f32", _FWD_ARGS, _SOURCE, _FWD))
+SIGMA_AGGREGATE_BY_SRC = register(Kernel(
+    "sigma_aggregate_by_src", "gnnome_sigma_aggregate_f32", _FWD_ARGS, _SOURCE, _FWD))
+SIGMA_AGGREGATE_BWD_GATHER = register(Kernel(
+    "sigma_aggregate_bwd_gather", "gnnome_sigma_aggregate_bwd_f32", _BWD_ARGS, _SOURCE,
+    _BWD))
+SIGMA_AGGREGATE_BWD = register(Kernel(
+    "sigma_aggregate_bwd", "gnnome_sigma_aggregate_bwd_f32", _BWD_ARGS, _SOURCE, _BWD))
+SIGMA_AGGREGATE_BWD_BY_SRC = register(Kernel(
+    "sigma_aggregate_bwd_by_src", "gnnome_sigma_aggregate_bwd_f32", _BWD_ARGS, _SOURCE,
+    _BWD))
+
+
+def _form(csr: CSR, ids: Optional[torch.Tensor], fwd: bool) -> Kernel:
+    if csr.identity:
+        if ids is not None:
+            return SIGMA_AGGREGATE_GATHER if fwd else SIGMA_AGGREGATE_BWD_GATHER
+        return SIGMA_AGGREGATE if fwd else SIGMA_AGGREGATE_BWD
+    if ids is None:
+        return SIGMA_AGGREGATE_BY_SRC if fwd else SIGMA_AGGREGATE_BWD_BY_SRC
+    raise ValueError("a by_src walk over a node table is the reverse aggregation "
+                     "(ops/reverse_sum.py)")
+
+
+def _value_rows(values, ids):
+    return values if ids is None else values[ids]
+
+
+def sigma_aggregate_plain(e, values, csr: CSR, ids=None):
+    n, d = csr.offsets.shape[0] - 1, e.shape[1]
+    sigma = torch.sigmoid(e)
+    stacked = torch.cat([sigma * _value_rows(values, ids), sigma], dim=-1)
+    valid = csr.key < n
+    sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=e.device)
+    return sums.index_add_(0, csr.key[valid], stacked[valid])
+
+
+def sigma_aggregate(e: torch.Tensor, values: torch.Tensor, csr: CSR,
+                    ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per key node of ``csr`` (``N = len(offsets) - 1`` rows)
+    ``[Σ σ(e)·v ‖ Σ σ(e)]`` (f32 [N, 2D]) over its edges, with ``e`` [E, D]
+    in canonical order and ``v = values[ids]`` (node table, canonical ids)
+    or, without ``ids``, ``values`` itself ([E, D], canonical order).
+    Padded edges (key ``PAD_SEGMENT``) join no sum."""
+    kernel = _form(csr, ids, fwd=True)
+    extra = [] if ids is None else [ids]
+    if on_cpu(e, values, csr.key, csr.offsets, *extra):
+        return sigma_aggregate_plain(e, values, csr, ids)
+    ints = [csr.offsets, *extra, *([] if csr.identity else [csr.order])]
+    check_cuda_args(kernel.name, [e, values], ints)
+    n, d = csr.offsets.shape[0] - 1, e.shape[1]
+    # a node table has a row per node, pregathered values one per edge
+    if values.shape != (e.shape[0] if ids is None else n, d) \
+            or (ids is not None and ids.shape[0] != e.shape[0]):
+        raise ValueError(f"{kernel.name}: shape mismatch")
+    sums = torch.empty((n, 2 * d), dtype=torch.float32, device=e.device)
+    kernel(e.device, e.data_ptr(), values.data_ptr(), csr.offsets.data_ptr(),
+           None if csr.identity else csr.order.data_ptr(),
+           None if ids is None else ids.data_ptr(), sums.data_ptr(), n, d,
+           int(vec4_ok(d, e, values, sums)))
+    return sums
+
+
+def sigma_aggregate_bwd_plain(e, g_sums, values, csr: CSR, ids=None):
+    d = e.shape[1]
+    gc = take_rows_plain(g_sums, csr.key)  # zero rows on padded edges
+    g1, g2 = gc[:, :d], gc[:, d:]
+    sig = torch.sigmoid(e)
+    return (g1 * _value_rows(values, ids) + g2) * (sig * (1.0 - sig)), g1 * sig
+
+
+def sigma_aggregate_bwd(e: torch.Tensor, g_sums: torch.Tensor, values: torch.Tensor,
+                        csr: CSR, ids: Optional[torch.Tensor] = None):
+    """``(d_e, d_v)`` per canonical edge ([E, D] each): the cotangents of
+    :func:`sigma_aggregate`'s inputs given ``g_sums`` ([N, 2D]); ``d_v`` is
+    the gradient of the value row each edge read (with ``ids``, its segment
+    sum over the CSR keyed on ``ids`` is ``d_values``). Zero on padded
+    edges."""
+    kernel = _form(csr, ids, fwd=False)
+    extra = [] if ids is None else [ids]
+    if on_cpu(e, g_sums, values, csr.key, csr.offsets, *extra):
+        return sigma_aggregate_bwd_plain(e, g_sums, values, csr, ids)
+    ints = [csr.offsets, *extra, *([] if csr.identity else [csr.order])]
+    check_cuda_args(kernel.name, [e, g_sums, values], ints)
+    n, (n_rows, d) = csr.offsets.shape[0] - 1, e.shape
+    if values.shape != (n_rows if ids is None else n, d) or g_sums.shape != (n, 2 * d) \
+            or (ids is not None and ids.shape[0] != n_rows):
+        raise ValueError(f"{kernel.name}: shape mismatch")
+    d_e, d_v = torch.empty_like(e), torch.empty_like(e)
+    kernel(e.device, e.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
+           csr.offsets.data_ptr(), None if csr.identity else csr.order.data_ptr(),
+           None if ids is None else ids.data_ptr(), d_e.data_ptr(), d_v.data_ptr(),
+           n, n_rows, d, int(vec4_ok(d, e, g_sums, values, d_e, d_v)))
+    return d_e, d_v
+
+
+class SigmaAggregate(torch.autograd.Function):
+    """:func:`sigma_aggregate` with the gradient of the JAX
+    ``_fused_sigma_aggregate`` (``gnnome_tpu/ops/segment.py:215-274``)
+    composed with the endpoint gather's VJP where the values are a node
+    table: ``d_values`` is then the segment sum of ``d_v`` over
+    ``value_csr_t``, the CSR keyed on ``ids``. Saves ``(e, values)``; a
+    strided slice of a wider table (the wide-gather pairs) is copied to
+    contiguous rows first."""
+
+    @staticmethod
+    def forward(ctx, e, values, csr: CSR, ids, value_csr_t: Optional[CSR]):
+        e, values = e.contiguous(), values.contiguous()
+        ctx.save_for_backward(e, values)
+        ctx.csr, ctx.ids, ctx.value_csr_t = csr, ids, value_csr_t
+        return sigma_aggregate(e, values, csr, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, values = ctx.saved_tensors
+        d_e, d_v = sigma_aggregate_bwd(e, g.contiguous(), values, ctx.csr, ctx.ids)
+        if ctx.ids is not None:
+            d_v = segment_sum(d_v, ctx.value_csr_t) if ctx.needs_input_grad[1] else None
+        return d_e, d_v, None, None, None

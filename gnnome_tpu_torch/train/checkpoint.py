@@ -93,6 +93,22 @@ def save_params(path: str, params: Any) -> None:
     os.replace(tmp, path)
 
 
+def _check_leaves(path: str, what: str, arrays: Dict[str, np.ndarray],
+                  expected: Dict[str, tuple]) -> None:
+    """Raise unless ``arrays`` holds exactly the ``expected`` leaves, each
+    with its shape: a file for another model size or config is refused,
+    never loaded partly or broadcast."""
+    missing = sorted(set(expected) - set(arrays))
+    unused = sorted(set(arrays) - set(expected))
+    if missing or unused:
+        raise KeyError(f"{path}: {what}: missing leaves {missing[:5]}, "
+                       f"unused arrays {unused[:5]}")
+    for key, shape in expected.items():
+        if tuple(np.shape(arrays[key])) != tuple(shape):
+            raise ValueError(f"{path}: {what}{key} has shape {np.shape(arrays[key])}, "
+                             f"expected {tuple(shape)}")
+
+
 def load_params(path: str, params_template: Any) -> Dict:
     """Load a JAX-format ``.npz`` into the layout of ``params_template``.
 
@@ -102,15 +118,8 @@ def load_params(path: str, params_template: Any) -> Dict:
     dtype and device."""
     with np.load(path, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
-    template = dict(iter_leaves(params_template))
-    missing = sorted(set(template) - set(arrays))
-    unused = sorted(set(arrays) - set(template))
-    if missing or unused:
-        raise KeyError(f"{path}: missing leaves {missing[:5]}, unused arrays {unused[:5]}")
-    for key, leaf in template.items():
-        if tuple(arrays[key].shape) != tuple(leaf.shape):
-            raise ValueError(f"{path}: {key} has shape {arrays[key].shape}, "
-                             f"expected {tuple(leaf.shape)}")
+    _check_leaves(path, "params", arrays,
+                  {k: tuple(leaf.shape) for k, leaf in iter_leaves(params_template)})
     return _fill(params_template, arrays)
 
 
@@ -191,16 +200,28 @@ def load_checkpoint(path: str, params: Any,
                     opt: torch.optim.Adam) -> Tuple[int, Dict[str, Any]]:
     """Restore a training checkpoint of either package into ``params`` (in
     place, so ``opt`` keeps its parameters) and ``opt``. Returns
-    ``(epoch, meta)``; ``epoch`` is -1 when the file has no sidecar."""
+    ``(epoch, meta)``; ``epoch`` is -1 when the file has no sidecar.
+
+    As strict as :func:`load_params`: the ``params`` leaves and the ``opt``
+    leaves must be exactly those of this model and optimizer, shapes
+    included, or it raises naming the leaf, before anything is changed.
+    (The JAX package's ``load_checkpoint`` is laxer: a checkpoint of another
+    depth would load partly there.)"""
     with np.load(path, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
+    stray = sorted(k for k in arrays if not k.startswith(("params", "opt")))
+    if stray:
+        raise KeyError(f"{path}: arrays that are neither params nor opt: {stray[:5]}")
+    file_params = {k[len("params"):]: v for k, v in arrays.items() if k.startswith("params")}
+    file_opt = {k[len("opt"):]: v for k, v in arrays.items() if k.startswith("opt")}
+    _check_leaves(path, "params", file_params,
+                  {k: tuple(leaf.shape) for k, leaf in iter_leaves(params)})
+    _check_leaves(path, "opt", file_opt,
+                  {k: np.shape(v) for k, v in opt_state_to_jax(opt, params).items()})
     with torch.no_grad():
         for key, leaf in iter_leaves(params):
-            if f"params{key}" not in arrays:
-                raise KeyError(f"{path}: checkpoint missing leaf {key}")
-            leaf.copy_(torch.from_numpy(np.array(arrays[f"params{key}"])))
-    opt_state_from_jax({k[len("opt"):]: v for k, v in arrays.items()
-                        if k.startswith("opt")}, params, opt)
+            leaf.copy_(torch.from_numpy(np.array(file_params[key])))
+    opt_state_from_jax(file_opt, params, opt)
     meta: Dict[str, Any] = {}
     if os.path.exists(path + ".json"):
         with open(path + ".json") as f:

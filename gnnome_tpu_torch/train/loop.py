@@ -86,14 +86,31 @@ def set_lr(opt: torch.optim.Adam, lr: float) -> torch.optim.Adam:
     return opt
 
 
+def resolve_perf(cfg_train, graph: AssemblyGraph):
+    """``(wide_gathers, remat, remat_group)`` for one graph, as the JAX
+    package resolves them (``gnnome_tpu/train/loop.py:85-105``): ``'auto'``
+    is the narrow path; wide rows past 600k edges narrow a group remat to
+    groups of at most 2 (memory only, the values are the same)."""
+    wide = cfg_train.wide_gathers
+    group = cfg_train.remat_group
+    if wide == "auto":
+        wide = False
+    if wide and graph.n_edges_padded > 600_000 and cfg_train.remat in ("group",
+                                                                        "unroll_group"):
+        group = min(group, 2)
+    return wide, cfg_train.remat, group
+
+
 def train_step(params, opt: torch.optim.Adam, graph: AssemblyGraph, e_feat, pe, y,
                pos_weight, batch_norm: bool = True, remat: str = "layer",
-               remat_group: int = 4) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               remat_group: int = 4,
+               wide_gathers=False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One full-graph optimization step; ``params`` are updated in place.
     Returns ``(loss, counts)`` as device tensors (nothing is fetched)."""
     opt.zero_grad(set_to_none=True)
     logits = model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
-                           remat=remat, remat_group=remat_group)
+                           remat=remat, remat_group=remat_group,
+                           wide_gathers=wide_gathers)
     loss = bce_with_logits(logits, y, graph.edge_mask, pos_weight)
     loss.backward()
     opt.step()
@@ -104,9 +121,10 @@ def train_step(params, opt: torch.optim.Adam, graph: AssemblyGraph, e_feat, pe, 
 
 @torch.no_grad()
 def eval_step(params, graph: AssemblyGraph, e_feat, pe, y, pos_weight,
-              batch_norm: bool = True):
+              batch_norm: bool = True, wide_gathers=False):
     """``(loss, counts, logits)`` of one forward, without gradients."""
-    logits = model_forward(params, graph, e_feat, pe, batch_norm=batch_norm)
+    logits = model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
+                           wide_gathers=wide_gathers)
     loss = bce_with_logits(logits, y, graph.edge_mask, pos_weight)
     return loss, confusion_counts(logits, y, graph.edge_mask), logits
 
@@ -127,15 +145,17 @@ def _epoch_pass(samples, params, opt, pos_weight, cfg: Config,
     """One pass over the graphs (full-graph); returns the mean metrics."""
     losses, per_graph = [], []
     for _, sample in samples:
+        wide, remat, group = resolve_perf(cfg.train, sample.graph)
         if train_mode:
             loss, counts = train_step(
                 params, opt, sample.graph, sample.e_feat, sample.pe, sample.y,
-                pos_weight, batch_norm=cfg.model.batch_norm, remat=cfg.train.remat,
-                remat_group=cfg.train.remat_group)
+                pos_weight, batch_norm=cfg.model.batch_norm, remat=remat,
+                remat_group=group, wide_gathers=wide)
         else:
             loss, counts, _ = eval_step(params, sample.graph, sample.e_feat,
                                         sample.pe, sample.y, pos_weight,
-                                        batch_norm=cfg.model.batch_norm)
+                                        batch_norm=cfg.model.batch_norm,
+                                        wide_gathers=wide)
         # one device fetch per step: loss and the four counts packed
         packed = torch.stack([loss, *(counts[k] for k in _COUNT_KEYS)]).cpu().numpy()
         losses.append(float(packed[0]))
@@ -157,9 +177,6 @@ def _check_supported(cfg: Config) -> None:
     if tc.compute_dtype != "float32":
         raise NotImplementedError(f"compute_dtype={tc.compute_dtype!r}: the port "
                                   "trains in float32 only (bf16 is a later slice)")
-    if tc.wide_gathers not in ("auto", False):
-        raise NotImplementedError("wide_gathers: the port gathers endpoint rows "
-                                  "directly and has no paired-row path")
 
 
 def train(train_path: str, valid_path: Optional[str] = None, out: str = "model",

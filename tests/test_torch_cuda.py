@@ -33,8 +33,11 @@ from gnnome_tpu_torch.ops.gate_epilog import (
 from gnnome_tpu_torch.ops.gate_front import (
     gate_front, gate_front_bwd, gate_front_bwd_plain, gate_front_plain)
 from gnnome_tpu_torch.ops.reverse_sum import (
-    rev_bwd, rev_bwd_plain, sigma_reverse_sum, sigma_reverse_sum_plain)
+    opp_bwd, opp_bwd_plain, rev_bwd, rev_bwd_plain, sigma_opposite, sigma_opposite_plain,
+    sigma_reverse_sum, sigma_reverse_sum_plain)
 from gnnome_tpu_torch.ops.segment_sum import segment_sum, segment_sum_plain
+from gnnome_tpu_torch.ops.sigma_aggregate import (
+    sigma_aggregate, sigma_aggregate_bwd, sigma_aggregate_bwd_plain, sigma_aggregate_plain)
 from gnnome_tpu_torch.ops.take import TAKE_ROWS, take_rows, take_rows_plain
 from gnnome_tpu_torch.train.checkpoint import iter_leaves
 
@@ -179,11 +182,97 @@ def test_rev_bwd_kernel(cuda, d):
     assert (got[0][g.n_edges:] == 0).all() and (got[1][g.n_edges:] == 0).all()
 
 
-def test_model_step_kernels_match_plain(cuda):
-    """One autograd step of a 2-layer model: every gradient through the
-    kernels on the card, against the plain versions on the CPU."""
-    g_cpu, rng = _graph(10, device="cpu")
-    g = _graph(10, device=cuda)[0]
+def _affine(rng, d, device):
+    return torch.stack([
+        torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal(d).astype(np.float32))]).to(device)
+
+
+@pytest.mark.parametrize("d", [30, 64, 256])
+@pytest.mark.parametrize("form", ["gather", "pregathered_by_dst", "pregathered_by_src"])
+def test_sigma_aggregate_kernel(cuda, d, form):
+    g, rng = _graph(11, device=cuda)
+    n, e_pad = g.n_nodes_padded, g.n_edges_padded
+    csr = g.by_src if form == "pregathered_by_src" else g.by_dst
+    ids = g.src if form == "gather" else None
+    e = _randn(rng, e_pad, d, device=cuda)
+    values = _randn(rng, n if ids is not None else e_pad, d, device=cuda)
+    g_sums = _randn(rng, n, 2 * d, device=cuda)
+    sums = sigma_aggregate(e, values, csr, ids)
+    got = sigma_aggregate_bwd(e, g_sums, values, csr, ids)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sums, sigma_aggregate_plain(e, values, csr, ids), **TOL)
+    for a, b in zip(got, sigma_aggregate_bwd_plain(e, g_sums, values, csr, ids)):
+        torch.testing.assert_close(a, b, **TOL)
+    assert (got[0][g.n_edges:] == 0).all() and (got[1][g.n_edges:] == 0).all()
+
+
+@pytest.mark.parametrize("d", [30, 64, 256])
+def test_gate_sigma_aggregate_kernel(cuda, d):
+    g, rng = _graph(12, device=cuda)
+    e_pad, n = g.n_edges_padded, g.n_nodes_padded
+    affine = _affine(rng, d, cuda)
+    gate, e_in, vals = (_randn(rng, e_pad, d, device=cuda) for _ in range(3))
+    sums, e_new = gate_sigma_gather(gate, e_in, vals, affine, g.by_dst)
+    ref_sums, ref_e_new = gate_sigma_gather_plain(gate, e_in, vals, affine, g.by_dst)
+    args = (gate, e_new, _randn(rng, e_pad, d, device=cuda),
+            _randn(rng, n, 2 * d, device=cuda), vals, affine, g.by_dst)
+    got, ref = epilog_bwd(*args), epilog_bwd_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(e_new, ref_e_new, **TOL)  # padded edges included
+    torch.testing.assert_close(sums, ref_sums, **TOL)
+    for a, b in zip(got[:3], ref[:3]):
+        torch.testing.assert_close(a, b, **TOL)
+    torch.testing.assert_close(got[3] / e_pad, ref[3] / e_pad, **TOL)
+
+
+@pytest.mark.parametrize("d", [30, 64, 256])
+def test_sigma_opposite_kernel(cuda, d):
+    g, rng = _graph(13, device=cuda)
+    n, e_pad = g.n_nodes_padded, g.n_edges_padded
+    e_new, values = _randn(rng, e_pad, d, device=cuda), _randn(rng, n, d, device=cuda)
+    g_sums = _randn(rng, n, 2 * d, device=cuda)
+    sums = sigma_opposite(e_new, values, g.by_src)
+    got = opp_bwd(e_new, g_sums, values, g.by_src)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sums, sigma_opposite_plain(e_new, values, g.by_src), **TOL)
+    torch.testing.assert_close(sums, sigma_reverse_sum(e_new, values, g.by_src, g.dst),
+                               **TOL)
+    for a, b in zip(got, opp_bwd_plain(e_new, g_sums, values, g.by_src)):
+        torch.testing.assert_close(a, b, **TOL)
+    assert (got[0][g.n_edges:] == 0).all() and (got[1][g.n_edges:] == 0).all()
+
+
+# launches of one 2-layer autograd step under remat="layer" (forward twice)
+STEP_LAUNCHES = {
+    "batchnorm": {"take_rows": 2, "gate_front": 4, "gate_sigma_gather": 4,
+                  "sigma_reverse_sum": 4, "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
+                  "gate_front_bwd": 2, "epilog_bwd": 2, "rev_bwd": 2},
+    "layernorm": {"take_rows": 10, "sigma_aggregate_gather": 4, "sigma_reverse_sum": 4,
+                  "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
+                  "sigma_aggregate_bwd_gather": 2, "rev_bwd": 2},
+    "wide": {"take_rows": 10, "gate_sigma_aggregate": 4, "sigma_aggregate_by_src": 4,
+             "segment_sum_by_dst": 3, "segment_sum_by_src": 3, "epilog_bwd_pregathered": 2,
+             "sigma_aggregate_bwd_by_src": 2},
+    "wide_src": {"take_rows": 10, "gate_sigma_aggregate": 4, "sigma_reverse_sum": 4,
+                 "segment_sum_by_dst": 5, "segment_sum_by_src": 3,
+                 "epilog_bwd_pregathered": 2, "rev_bwd": 2},
+    "layernorm_wide": {"take_rows": 10, "sigma_aggregate": 4, "sigma_aggregate_by_src": 4,
+                       "segment_sum_by_dst": 3, "segment_sum_by_src": 3,
+                       "sigma_aggregate_bwd": 2, "sigma_aggregate_bwd_by_src": 2},
+}
+VARIANTS = {"batchnorm": (True, False), "layernorm": (False, False), "wide": (True, True),
+            "wide_src": (True, "src"), "layernorm_wide": (False, True)}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_model_step_kernels_match_plain(cuda, variant):
+    """One autograd step of a 2-layer model of each variant: every gradient
+    through the kernels on the card against the plain versions on the CPU,
+    the launch counts, and two forwards on the card bit for bit alike."""
+    batch_norm, wide = VARIANTS[variant]
+    g_cpu, rng = _graph(14, device="cpu")
+    g = _graph(14, device=cuda)[0]
     cfg = ModelConfig(hidden_features=64, num_gnn_layers=2, nb_pos_enc=4)
     e_feat = rng.standard_normal((g.n_edges_padded, 2)).astype(np.float32)
     pe = rng.standard_normal((g.n_nodes_padded, 6)).astype(np.float32)
@@ -192,21 +281,23 @@ def test_model_step_kernels_match_plain(cuda):
     for graph, dev in ((g, cuda), (g_cpu, torch.device("cpu"))):
         params = init_model_params(torch.Generator().manual_seed(0), cfg, dev)
         leaves = dict(iter_leaves(params))
+        inputs = (graph, torch.from_numpy(e_feat).to(dev), torch.from_numpy(pe).to(dev))
+        kw = dict(batch_norm=batch_norm, wide_gathers=wide)
+        if dev.type == "cuda":
+            with torch.no_grad():
+                assert torch.equal(model_forward(params, *inputs, **kw),
+                                   model_forward(params, *inputs, **kw))
         for leaf in leaves.values():
             leaf.requires_grad_(True)
         for k in KERNELS.values():
             k.launches = 0
-        logits = model_forward(params, graph, torch.from_numpy(e_feat).to(dev),
-                               torch.from_numpy(pe).to(dev), remat="layer")
+        logits = model_forward(params, *inputs, remat="layer", **kw)
         bce_with_logits(logits, torch.from_numpy(y).to(dev), graph.edge_mask,
                         torch.tensor(0.5, device=dev)).backward()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            launches = {name: k.launches for name, k in KERNELS.items()}
-            assert launches == {"take_rows": 2, "gate_front": 4, "gate_sigma_gather": 4,
-                                "sigma_reverse_sum": 4, "segment_sum_by_dst": 5,
-                                "segment_sum_by_src": 5, "gate_front_bwd": 2,
-                                "epilog_bwd": 2, "rev_bwd": 2}, launches
+            launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+            assert launches == STEP_LAUNCHES[variant], launches
         grads.append({k: v.grad.cpu() for k, v in leaves.items()})
     got, ref = grads
     total = torch.sqrt(sum((v.double() ** 2).sum() for v in ref.values()))

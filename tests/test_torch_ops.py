@@ -127,9 +127,12 @@ def test_graph_arrays_match_jax(make):
         (tg.by_src.offsets, jg.by_src.offsets),
         (tg.by_src.segment_ids, jg.by_src.segment_ids),
         (tg.by_src.key, jg.by_src.key_canonical),
+        (tg.by_src.inv_order, jg.by_src.inv_order),
+        (tg.by_src.opp_ids, jg.by_src.opp_ids),
     ]
     for ours, theirs in pairs:
         np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    assert tg.by_dst.inv_order is None and tg.by_dst.opp_ids is None
     np.testing.assert_array_equal(tg.edge_perm, np.asarray(jg.edge_perm))
     np.testing.assert_array_equal(tg.edge_inv_perm, np.asarray(jg.edge_inv_perm))
     for ours, theirs in zip(degrees(tg), jax_degrees(jg)):

@@ -77,9 +77,10 @@ from gnnome_tpu_torch.ops.gate_epilog import (
     GateSigmaGather, epilog_bwd, gate_sigma_gather_plain)
 from gnnome_tpu_torch.ops.gate_front import GateFront, gate_front_bwd, gate_front_plain
 from gnnome_tpu_torch.ops.reverse_sum import (
-    SigmaReverseSum, rev_bwd, sigma_reverse_sum_plain)
+    SigmaReverseSum, opp_bwd, rev_bwd, sigma_opposite_plain, sigma_reverse_sum_plain)
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
-from gnnome_tpu_torch.ops.take import TakeRows, take_rows_plain
+from gnnome_tpu_torch.ops.sigma_aggregate import sigma_aggregate_bwd, sigma_aggregate_plain
+from gnnome_tpu_torch.ops.take import TakeRows, take_rows, take_rows_plain
 from gnnome_tpu_torch.train import checkpoint as ckpt
 from gnnome_tpu_torch.train import loop
 from gnnome_tpu_torch.train.checkpoint import iter_leaves, params_from_jax
@@ -93,13 +94,14 @@ BN_CANCELLED = ("['A1']['b']", "['B1']['b']", "['B2']['b']", "['B3']['b']")
 NOISE = 1e-6  # of the norm of all gradients: below it a reference leaf is rounding noise
 
 
-def grad_errors(got, want):
+def grad_errors(got, want, cancelled=BN_CANCELLED):
     """Per leaf ``‖g − g_ref‖ / ‖g_ref‖``, leaving out the leaves whose
     reference gradient is rounding noise; asserts that those include every
-    BatchNorm-cancelled bias and that the port's are noise too."""
+    bias whose exact gradient is zero (``cancelled``: the BatchNorm-fed
+    ones by default) and that the port's are noise too."""
     total = np.sqrt(sum(float(np.sum(w.astype(np.float64) ** 2)) for w in want.values()))
     noise = {k for k, w in want.items() if np.linalg.norm(w) <= NOISE * total}
-    assert {k for k in want if k.endswith(BN_CANCELLED)} <= noise
+    assert {k for k in want if k.endswith(cancelled)} <= noise
     for k in noise:
         assert np.linalg.norm(got[k]) <= 10 * NOISE * total, k
     return {k: float(np.linalg.norm(got[k] - w) / np.linalg.norm(w))
@@ -216,7 +218,7 @@ def test_plain_backward_matches_autograd():
     """On an unpadded graph (a padded edge gathers row 0 in the forward, and
     the JAX VJP, unlike autograd of the gather, drops its cotangent), the
     backward kernels' plain versions give what autograd of the forward
-    kernels' plain versions gives."""
+    kernels' plain versions gives, in every form of each."""
     rng = np.random.default_rng(23)
     src, dst, n = random_edges(rng, n=120, e=900)
     g = build_graph(src, dst, n, device="cpu")
@@ -254,6 +256,26 @@ def test_plain_backward_matches_autograd():
                        [e_new, values], [cot])
     d_en, d_vr = rev_bwd(t(e_new), t(cot), t(values), g.by_src, g.dst)
     close_all([d_en, segment_sum(d_vr, g.by_dst)], [w.numpy() for w in want])
+    # the same in src-sorted order, taken back through inv_order
+    want = grads(lambda en, v: sigma_opposite_plain(en, v, g.by_src), [e_new, values], [cot])
+    d_en, d_vr = (take_rows(x, g.by_src.inv_order)
+                  for x in opp_bwd(t(e_new), t(cot), t(values), g.by_src))
+    close_all([d_en, segment_sum(d_vr, g.by_dst)], [w.numpy() for w in want])
+    # the σ-aggregate: by_dst over a node table at src, by_dst and by_src
+    # over pregathered rows
+    for csr, ids, rows in ((g.by_dst, g.src, n), (g.by_dst, None, e), (g.by_src, None, e)):
+        inputs = [f32(rng, e, d), f32(rng, rows, d)]
+        want = grads(lambda x, v: sigma_aggregate_plain(x, v, csr, ids), inputs, [cot])
+        d_e, d_v = sigma_aggregate_bwd(t(inputs[0]), t(cot), t(inputs[1]), csr, ids)
+        close_all([d_e, d_v if ids is None else segment_sum(d_v, g.by_src)],
+                  [w.numpy() for w in want])
+    # the gate epilog over pregathered rows: d_vals is their gradient
+    inputs = [f32(rng, e, d), f32(rng, e, d), f32(rng, e, d), affine]
+    want = grads(lambda *x: gate_sigma_gather_plain(*x, g.by_dst), inputs, [g_sums, g_enew])
+    _, e_new = gate_sigma_gather_plain(*map(t, inputs), g.by_dst)
+    got = epilog_bwd(t(inputs[0]), e_new, t(g_enew), t(g_sums), t(inputs[2]), t(affine),
+                     g.by_dst)
+    close_all(list(got), [w.numpy() for w in want], edge_sums=(3,))
 
 
 # ---------------------------------------------------------------------------
