@@ -15,8 +15,9 @@ stopped); any failure raises and exits non-zero:
              (150k nodes, ~1M edges): the bench graph, whose skip edges all
              land within 22 node ids (rows gathered near each other), and
              the same graph with 11.93% of its edges rewired to random loci,
-             the cross-locus share of real graphs. The row gather and the
-             segment sums are also held at the wide-gather width 2D = 512.
+             the cross-locus share of real graphs. The row gather is held at
+             the score head's 64, the LayerNorm gathers' D = 256 and the
+             wide-gather width 2D = 512; the segment sums at D and 2D.
 3. scoring — the serving path: ``score_graph`` of the 16-layer, D=256
              GatedGCN on both graphs, with the shipped BatchNorm weights
              (``pretrained/model_hardfull40.npz``) and with seeded random
@@ -36,8 +37,7 @@ stopped); any failure raises and exits non-zero:
              path through the by_dst pregathered σ-aggregate). Each: launch
              counts of one step against the stated counts, the median of 3
              steps after a warm-up, peak memory, a torch.profiler breakdown
-             and a finite loss on every step. Only ``remat="none"`` may run
-             out of device memory; that is reported and the phase goes on.
+             and a finite loss on every step.
 5. end to end — ``inference()`` from simulated reads to contigs on a 60 kb
              genome with a planted repeat; its edge probabilities are held
              against the port's CPU path (the plain versions) on that graph.
@@ -83,6 +83,7 @@ FRAC_LONG = CROSS_LOCUS * N_EDGES / (N_EDGES - N_NODES)
 LOCAL_REACH = 22  # the farthest a bench skip edge reaches (2 * 11)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+TF32_TC_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
 KERNEL_TOL = 1e-5  # rtol = atol; the kernels sum in f32 in another order
 # edge probabilities, CUDA path vs CPU path (atol; the inference parity of
 # tests/test_torch_inference.py). Logits are not held tighter than the JAX package agrees with the
@@ -127,9 +128,11 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate or operations
+    over the peak rate of the units that run them, the larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -185,11 +188,12 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
     u_src, u_dst = rows(graph.src), rows(graph.dst)
     rows_out = []
 
-    def measure(kernel, max_err, tol, fn, plain, library, n_bytes, n_ops, what=""):
+    def measure(kernel, max_err, tol, fn, plain, library, n_bytes, n_ops, what="",
+                ops_per_s=FP32_OPS_PER_S):
         ms = time_ms(torch, fn)
         plain_ms = time_ms(torch, plain)
         library_ms = time_ms(torch, library) if library else None
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
         log(f"  {kernel.name}{what}: max_abs_err={max_err:.3e} (tol rtol=atol={tol}) "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
             f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
@@ -197,9 +201,9 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
         return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=library_ms)
 
-    def record(kernel, *args):
+    def record(kernel, *args, **kw):
         rows_out.append(dict(name=kernel.name, route="cuda", source=kernel.source,
-                             replaces=kernel.replaces, launches=0, **measure(kernel, *args)))
+                             replaces=kernel.replaces, launches=0, **measure(kernel, *args, **kw)))
 
     def close_all(name, got, ref):
         return max(check_close(f"{name}.{i}", torch, a, b, KERNEL_TOL, KERNEL_TOL)
@@ -213,14 +217,16 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
            lambda: take_rows_plain(table, graph.src),
            lambda: table.index_select(0, graph.src),
            u_src * d_score * 4 + e * 4 + e * d_score * 4, 0)
-    # ... and at the wide-gather width: [b1h ‖ a2h] by src
-    table = randn(n, d_wide)
-    err = check_close("take_rows[2D]", torch, take_rows(table, graph.src),
-                      take_rows_plain(table, graph.src), 0.0, 0.0)
-    rows_out[-1]["at_2d"] = measure(
-        TAKE_ROWS, err, 0.0, lambda: take_rows(table, graph.src),
-        lambda: take_rows_plain(table, graph.src), lambda: table.index_select(0, graph.src),
-        u_src * d_wide * 4 + e * 4 + e * d_wide * 4, 0, what=f" [N, {d_wide}]")
+    # ... at the LayerNorm layer's endpoint width D, and at the wide-gather
+    # width: [b1h ‖ a2h] by src
+    for key, width in (("at_d", d), ("at_2d", d_wide)):
+        table = randn(n, width)
+        err = check_close(f"take_rows[{width}]", torch, take_rows(table, graph.src),
+                          take_rows_plain(table, graph.src), 0.0, 0.0)
+        rows_out[-1][key] = measure(
+            TAKE_ROWS, err, 0.0, lambda: take_rows(table, graph.src),
+            lambda: take_rows_plain(table, graph.src), lambda: table.index_select(0, graph.src),
+            u_src * width * 4 + e * 4 + e * width * 4, 0, what=f" [N, {width}]")
     del table, got
 
     # 1: gate front
@@ -232,10 +238,20 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
     err = max(check_close("gate_front.gate", torch, gate, ref_gate, KERNEL_TOL, KERNEL_TOL),
               check_close("gate_front.mom/E", torch, mom / graph.n_edges,
                           ref_mom / graph.n_edges, KERNEL_TOL, KERNEL_TOL))
+    # the product runs on the tensor cores as three TF32 products (split-TF32,
+    # csrc/gate_front.cu): its bound is theirs; the f32 CUDA-core bound of the
+    # same product and cuBLAS's f32 e·W3 + b3 alone (which the port never
+    # calls for this row) are printed beside it
+    front_bytes = (2 * e * d + (u_src + u_dst) * d + d * d + d + 2 * d) * 4 + 2 * e * 4
     record(GATE_FRONT, err, KERNEL_TOL, lambda: gate_front(*args),
-           lambda: gate_front_plain(*args), None,
-           (2 * e * d + (u_src + u_dst) * d + d * d + d + 2 * d) * 4 + 2 * e * 4,
-           2 * e * d * d + 3 * e * d + 3 * graph.n_edges * d)
+           lambda: gate_front_plain(*args), None, front_bytes, 3 * 2 * e * d * d,
+           ops_per_s=TF32_TC_OPS_PER_S)
+    f32_ms, f32_by = bound(front_bytes, 2 * e * d * d + 3 * e * d + 3 * graph.n_edges * d)
+    addmm_ms = time_ms(torch, lambda: torch.addmm(b3, ein, w3))
+    rows_out[-1].update(bound_f32_cuda_cores_ms=f32_ms, addmm_f32_ms=addmm_ms)
+    log(f"  gate_front bounds: 3-pass TF32 tensor cores {rows_out[-1]['bound_ms']:.4f} ms "
+        f"({rows_out[-1]['bound_by']}), f32 CUDA cores {f32_ms:.4f} ms ({f32_by}); "
+        f"note: torch.addmm(b3, e, W3) in f32 (cuBLAS, the product alone) {addmm_ms:.4f} ms")
     del ref_gate, ref_mom, b1h, b2h, w3, b3, args
 
     # 2: gate epilog + forward aggregation
@@ -490,7 +506,7 @@ def expected_launches(variant: str, remat, layers: int = LAYERS) -> dict:
 
 def phase_training(torch, graph, seed: int) -> dict:
     """The full-scale training step of each of ``TRAIN_RUNS``; returns the
-    launch counts of one step per run (None where it did not fit)."""
+    launch counts of one step per run."""
     from gnnome_tpu_torch.config import ModelConfig
     from gnnome_tpu_torch.data.synthetic import bench_features, bench_labels
     from gnnome_tpu_torch.models.model import init_model_params
@@ -520,27 +536,14 @@ def phase_training(torch, graph, seed: int) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        try:
-            reset_launches()
-            losses = [step()]
-            launches = read_launches()
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                losses.append(step())
-                times.append((time.perf_counter() - t0) * 1e3)
-        except torch.cuda.OutOfMemoryError as exc:
-            if remat != "none":
-                raise
-            log(f"  {label}: did not fit on the card ({torch.cuda.get_device_name(0)}, "
-                f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB): "
-                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated when "
-                f"{str(exc).splitlines()[0]}")
-            out[(variant, remat)] = None
-            del params, opt, exc
-            gc.collect()
-            torch.cuda.empty_cache()
-            continue
+        reset_launches()
+        losses = [step()]
+        launches = read_launches()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(step())
+            times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
         log(f"  {label}: launches in one step: { {k: v for k, v in launches.items() if v} }")
         if launches != expected_launches(variant, remat):
@@ -561,6 +564,7 @@ def phase_training(torch, graph, seed: int) -> dict:
 
 PORT_KERNELS = {  # device kernel name -> the wrapper(s) that launch it
     "gate_front_kernel": "gate_front", "moments_reduce_kernel": "gate_front",
+    "w3_split_kernel": "gate_front",
     "gate_sigma_gather_kernel": "gate_sigma_gather",
     "gate_sigma_aggregate_kernel": "gate_sigma_aggregate",
     "gate_epilog_tail_kernel": "gate_sigma_gather / gate_sigma_aggregate",
@@ -854,12 +858,12 @@ def main() -> int:
     # training path that runs the kernel; every path's count beside it
     paths = {**scoring, **{f"train_step_{v}_remat_{r}": c for (v, r), c in training.items()},
              **{f"genome_step_{v}_remat_layer": c for v, c in genome.items()}}
-    steps = [training[run] for run in TRAIN_RUNS if training[run] is not None]
+    steps = [training[run] for run in TRAIN_RUNS]
     for row in kernels:
         name = row["name"]
         row["launches"] = next((c[name] for c in steps if c[name]), 0)
-        row["launches_by_path"] = {p: None if c is None else c[name] for p, c in paths.items()}
-        row["on_path"] = any(c is not None and c[name] for c in paths.values())
+        row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        row["on_path"] = any(c[name] for c in paths.values())
         if not row["on_path"]:
             row["note"] = ("the JAX package's route only where TPU band plans exist; "
                            "the model takes sigma_reverse_sum on every graph")

@@ -7,169 +7,582 @@
 // GatedGCN layer, 16 per forward of the shipped model).
 //
 // Bound on the H100: operations. At E = 1M, D = 256 the product e . W3 is
-// 2*E*D*D = 134 GFLOP; in f32 on the CUDA cores (67 TFLOP/s) that is
-// 2.0 ms. Bytes: e and gate 1.02 GB each, two 150k-row node tables 154 MB
-// each, ids 8 MB: about 2.36 GB, 0.70 ms at 3.35 TB/s.
+// 2*E*D*D = 131 GFLOP. This kernel runs it on the tensor cores as three
+// TF32 products (below): 393 GFLOP at 495 TFLOP/s = 0.79 ms. (In f32 on the
+// CUDA cores, 67 TFLOP/s, it would be 1.96 ms.) Bytes: e and gate 1.02 GB
+// each, two 150k-row node tables 154 MB each, ids 8 MB: about 2.36 GB,
+// 0.70 ms at 3.35 TB/s.
 //
-// Design: a plain shared-memory tiled SGEMM. A block owns 64 output columns
-// and walks 64-edge row tiles (blockIdx.x-strided, so the assignment of
-// tiles to blocks is fixed); 256 threads each hold a 4x4 register tile and
-// step through K in slices of 16 staged in shared memory. The epilogue adds
-// the two gathered endpoint rows and the bias, writes the gate, and folds
-// the real rows into per-thread column moments. Moments leave the block as
-// one partial row per block, and a second kernel sums the partials in a
-// fixed order: deterministic, with no float atomics, and padded rows never
-// enter a sum. The TPU kernel's banded endpoint windows are not needed:
-// endpoint rows are read directly.
+// Precision: the TPU kernel runs the product on the MXU at
+// Precision.HIGHEST, a multi-pass bf16 split with f32 accuracy. The Hopper
+// counterpart is the 3-pass split-TF32 product: x = x_hi + x_lo with
+// x_hi = tf32(x) and x_lo = tf32(x - x_hi), both rounded to nearest
+// (cvt.rna; truncated parts would represent x only to ~2^-21), and
+//   e . W3 ~ (e_lo . W_hi + e_hi . W_lo) + e_hi . W_hi.
+// The dropped e_lo . W_lo is below 2^-22 of each product. The tensor cores
+// add into an f32 accumulator without rounding to nearest, so every
+// accumulation step can lose up to an ulp of the running sum: the two
+// small cross terms accumulate apart from the big one (32 steps into the
+// big sum at D = 256, not 96) and join it once, in f32, at the end. That
+// holds the kernel within 1e-5 of the f32 product (tests/test_torch_tf32split.py
+// argues the tolerance on the CPU). One TF32 pass keeps ~3 decimal digits
+// and is not used.
+//
+// Design:
+// - A block owns 128-edge row tiles and all 256 output columns (gridDim.y
+//   column blocks only for D > 256), in two passes of 128 columns (two
+//   accumulators of 64 f32 a thread fit beside each other; one of 128 would
+//   not). Each endpoint row is gathered once and the moments are whole
+//   columns. One block per SM walks a fixed, blockIdx-strided set of tiles.
+// - Two warpgroups, 64 rows each, run wgmma.m64n128k8 (sm_90a) with the
+//   accumulators in registers. A comes from registers: each thread reads
+//   its fragment of the e tile from shared memory (ldmatrix) and splits it
+//   there. B is W3^T, K-major, split into hi/lo once per call by
+//   w3_split_kernel into the core-matrix order a stage holds, so a stage's
+//   B is two contiguous 8 KB copies.
+// - A 4-stage ring of K slices (16 k: the e tile and both W3 parts),
+//   filled two slices ahead by thread 0: a TMA load of the e tile (a 2-D
+//   tensor map; rows past the end and columns past d arrive as zeros) and
+//   two bulk copies of the W3 parts, all completing on the stage's
+//   mbarrier, so loads overlap the products and the other threads issue
+//   none. The ring runs on across passes and tiles. W3's parts are shared
+//   by every block and stay in L2.
+// - The epilogue of a pass runs in the shadow of the next pass's products:
+//   the pass's e . W3 goes to shared memory, and while each later slice's
+//   wgmmas run, every warp finishes a row of it: adds the gathered endpoint
+//   rows (loaded one row ahead) and the bias, stores the gate row with
+//   16-byte streaming stores, and adds real rows into column moments that
+//   each lane keeps in registers for its 4 columns.
+// - Moments leave the block as one partial row per block, summed by a
+//   second kernel in a fixed order (gnnome::reduce_partials): deterministic,
+//   no float atomics, padded rows written but never summed.
+// What holds it above its bound (PERF.md section 6): all eight warps split,
+// issue and finish epilogue rows between one block-wide barrier per slice,
+// so instruction issue and the epilogue's gathers, not the tensor cores,
+// set the pace. A producer warp beside the two warpgroups was slower: with
+// a third warpgroup the compiler holds every thread to 168 registers.
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is looked up at run time
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // edges per row tile
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 16;        // K slice staged in shared memory
-constexpr int TM = 4;         // rows per thread
-constexpr int TN = 4;         // columns per thread
-constexpr int THREADS = 256;  // (BM / TM) * (BN / TN)
-constexpr int TX = BN / TN;   // 16 threads across the columns
-constexpr int TY = BM / TM;   // 16 threads down the rows
-constexpr int APAD = 4;       // keeps the transposed A tile's stores spread
+constexpr int BM = 128;      // edges per row tile: two warpgroups of 64
+constexpr int BN = 256;      // output columns per block
+constexpr int NP = 128;      // output columns per pass: one wgmma n128
+constexpr int BK = 16;       // K per pipeline stage
+constexpr int KSTEPS = BK / 8;  // wgmma k8 steps per stage
+constexpr int STAGES = 4;    // ring depth; loads run STAGES - 2 slices ahead
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS_PER_WARP = BM / WARPS;  // epilogue rows of a pass per warp
+// e tile row stride (floats): ldmatrix rows on distinct banks. The TMA box
+// is that wide too: it reads 4 columns past the slice, which go unused.
+constexpr int A_LD = BK + 4;
+constexpr int A_FLOATS = BM * A_LD;
+constexpr int B_FLOATS = BK * NP;  // one W3 part of a stage: [BK / 4][NP][4]
+constexpr int STAGE_FLOATS = A_FLOATS + 2 * B_FLOATS;
+constexpr int C_LD = NP + 8;  // product tile row stride: its float2 stores without conflicts
+// the ring, the product tile and the ring's barriers, after 128 bytes of
+// slack to align the ring for TMA: 176,288
+constexpr size_t SMEM_BYTES =
+    128 + sizeof(float) * (STAGES * STAGE_FLOATS + BM * C_LD) + STAGES * sizeof(uint64_t);
 
-__global__ void __launch_bounds__(THREADS) gate_front_kernel(
-    const float* __restrict__ b1h, const float* __restrict__ b2h,
-    const float* __restrict__ e, const float* __restrict__ w3,
-    const float* __restrict__ b3, const int* __restrict__ src,
-    const int* __restrict__ dst, float* __restrict__ gate,
-    float* __restrict__ partial, int64_t n_rows, int64_t n_real, int d) {
-  __shared__ __align__(16) float As[BK][BM + APAD];  // e tile, transposed
-  __shared__ __align__(16) float Bs[BK][BN];         // W3 tile
-  __shared__ float red[2][TY][BN];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int col0 = blockIdx.y * BN;
-  const int64_t n_tiles = (n_rows + BM - 1) / BM;
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: what cvt.rna.tf32.f32 computes, in two integer operations (ptxas
+// expands that cvt into a longer sequence on sm_90a). Add half of the 13
+// dropped bits to the magnitude, then clear them; a finite x past the
+// largest TF32 value becomes inf, as with cvt.rna.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
-  float s[TN] = {};
-  float ss[TN] = {};
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
 
-  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int64_t row0 = tile * BM;
-    float acc[TM][TN] = {};
-    for (int k0 = 0; k0 < d; k0 += BK) {
-#pragma unroll
-      for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-        const int idx = tid + i * THREADS;
-        const int r = idx / BK;
-        const int c = idx % BK;
-        const int64_t gr = row0 + r;
-        const int gk = k0 + c;
-        As[c][r] = (gr < n_rows && gk < d) ? e[gr * d + gk] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-        const int idx = tid + i * THREADS;
-        const int r = idx / BN;
-        const int c = idx % BN;
-        const int gk = k0 + r;
-        const int gc = col0 + c;
-        Bs[r][c] = (gk < d && gc < d) ? w3[(int64_t)gk * d + gc] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-        const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-        const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int64_t row = row0 + ty * TM + i;
-      if (row >= n_rows) break;
-      const int64_t so = (int64_t)src[row] * d;
-      const int64_t dO = (int64_t)dst[row] * d;
-      const bool real = row < n_real;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = col0 + tx * TN + j;
-        if (col < d) {
-          const float g = (b1h[so + col] + b2h[dO + col]) + (acc[i][j] + b3[col]);
-          gate[row * d + col] = g;
-          if (real) {
-            s[j] += g;
-            ss[j] += g * g;
-          }
-        }
-      }
-    }
-  }
+// one bulk copy (async proxy, as wgmma reads) of `bytes` contiguous bytes,
+// completing on `bar`; the caller has announced the bytes on `bar`
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
 
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    red[0][ty][tx * TN + j] = s[j];
-    red[1][ty][tx * TN + j] = ss[j];
-  }
-  __syncthreads();
-  if (tid < 2 * BN) {
-    const int k = tid / BN;
-    const int c = tid % BN;
-    float t = 0.0f;
-    for (int r = 0; r < TY; ++r) t += red[k][r][c];
-    if (col0 + c < d) partial[((int64_t)blockIdx.x * 2 + k) * d + col0 + c] = t;
+// the e tile [BM][A_LD] at (column k0, row row0): rows past the end and
+// columns past d arrive as zeros
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int k0, int row0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
 }
 
-// mom[k, c] = sum over parts p of partial[p, k, c], in a fixed order: each
-// of 8 warps sums a strided subset of the parts, then warp 0 adds the 8.
-__global__ void __launch_bounds__(256) moments_reduce_kernel(
-    const float* __restrict__ partial, float* __restrict__ mom, int n_parts,
-    int d) {
-  __shared__ float sm[8][32];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int64_t out = (int64_t)blockIdx.x * 32 + lane;
-  float acc = 0.0f;
-  if (out < 2 * (int64_t)d) {
-    const int64_t k = out / d;
-    const int64_t c = out % d;
-    for (int p = warp; p < n_parts; p += 8) acc += partial[((int64_t)p * 2 + k) * d + c];
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or reuse of a register across an
+// asynchronous wgmma (issue to wait).
+__device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x) :: "memory"); }
+__device__ __forceinline__ void pin(uint32_t& x) { asm volatile("" : "+r"(x) :: "memory"); }
+
+// Shared-memory descriptor of a K-major B slice without swizzle: core
+// matrices of 8 n-rows x 16 bytes (4 k), 128 contiguous bytes each; the
+// next 4 k lie NP * 16 bytes on (leading byte offset), the next 8 n
+// 128 bytes on (stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(const float* p) {
+  return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((NP * 16) >> 4) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+#define GNNOME_D8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),     \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A . B over one k8 step: A [64, 8] tf32 from registers (this
+// thread's fragment), B [8, 128] tf32 from shared memory; scale_d = 0
+// overwrites d. d[4j + 2h + c] is row 16 * (warp % 4) + lane / 4 + 8h,
+// column 8j + 2 * (lane % 4) + c.
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
+      : GNNOME_D8(0), GNNOME_D8(8), GNNOME_D8(16), GNNOME_D8(24), GNNOME_D8(32),
+        GNNOME_D8(40), GNNOME_D8(48), GNNOME_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc));
+}
+
+#undef GNNOME_D8
+
+// W3 [d, d] -> W3^T split into hi/lo tf32 parts, zero-padded to n_ks * BK
+// rows of k and 256-column blocks of two 128-column passes, in the order a
+// stage holds them: [column block][pass][K slice][k / 4][n][k % 4].
+__global__ void __launch_bounds__(256) w3_split_kernel(
+    const float* __restrict__ w3, float* __restrict__ hi, float* __restrict__ lo, int d,
+    int n_ks, int64_t total) {
+  for (int64_t i = blockIdx.x * 256ll + threadIdx.x; i < total; i += gridDim.x * 256ll) {
+    const int q = static_cast<int>(i & 3);
+    const int n = static_cast<int>((i >> 2) % NP);
+    const int64_t rest = i / (4 * NP);
+    const int kc = static_cast<int>(rest % (BK / 4));
+    const int64_t slice = rest / (BK / 4);
+    const int k = static_cast<int>(slice % n_ks) * BK + kc * 4 + q;
+    const int col = static_cast<int>(slice / n_ks) * NP + n;  // (block, pass) -> 128 columns
+    const float v = (k < d && col < d) ? w3[static_cast<int64_t>(k) * d + col] : 0.0f;
+    const uint32_t h = tf32_rna(v);
+    hi[i] = __uint_as_float(h);
+    lo[i] = __uint_as_float(tf32_rna(v - __uint_as_float(h)));
   }
-  sm[warp][lane] = acc;
+}
+
+// VEC = 4: rows of e, b1h, b2h and gate 16-byte aligned (d % 4 == 0), the
+// e tile by TMA; VEC = 1: any d, the threads copy the e tile element by
+// element, scalar epilogue accesses.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 1) gate_front_kernel(
+    const __grid_constant__ CUtensorMap e_map, const float* __restrict__ b1h,
+    const float* __restrict__ b2h, const float* __restrict__ e,
+    const float* __restrict__ w_hi, const float* __restrict__ w_lo,
+    const float* __restrict__ b3, const int* __restrict__ src, const int* __restrict__ dst,
+    float* __restrict__ gate, float* __restrict__ partial, int n_rows, int n_real, int d,
+    int n_ks) {
+  extern __shared__ unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) &
+                                         ~static_cast<uintptr_t>(127));
+  float* ctile = smem + STAGES * STAGE_FLOATS;  // a pass's e . W3 + b3: [BM][C_LD]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ctile + BM * C_LD);  // a stage has landed
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;  // rows 16 * warp .. + 15 of a tile in the products
+  const int col0 = blockIdx.y * BN;
+  const int n_half = (d - col0 + NP - 1) / NP < 2 ? (d - col0 + NP - 1) / NP : 2;
+  const int n_tiles = (n_rows + BM - 1) / BM;
+  const int my_tiles =
+      static_cast<int>(blockIdx.x) < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_pass = my_tiles * n_half;  // (tile, 128 columns), tile after tile
+  const int total_it = n_pass * n_ks;    // K slices this block runs
+
+  // The next slice to load into the ring: its number, K slice, pass (half)
+  // and first tile row. Slices load in order, so a cursor replaces divisions.
+  int ld_it = 0, ld_ks = 0, ld_half = 0, ld_row0 = blockIdx.x * BM;
+  // that slice into its stage: thread 0 issues a TMA load of the e tile and
+  // two bulk copies of the W3 parts, all completing on the stage's barrier
+  // (VEC = 1: the threads copy the e tile themselves)
+  auto load_slice = [&]() {
+    const int row0 = ld_row0, ks = ld_ks, k0 = ld_ks * BK;
+    const int it = ld_it;
+    float* st = smem + (it % STAGES) * STAGE_FLOATS;
+    if constexpr (VEC == 1) {
+      for (int i = tid; i < BM * BK; i += THREADS) {
+        const int r = i / BK, kk = i % BK;
+        st[r * A_LD + kk] = row0 + r < n_rows && k0 + kk < d
+                                ? e[static_cast<int64_t>(row0 + r) * d + k0 + kk] : 0.0f;
+      }
+    }
+    if (tid == 0) {
+      const int64_t b0 = (static_cast<int64_t>(blockIdx.y * 2 + ld_half) * n_ks + ks) * B_FLOATS;
+      uint64_t* bar = &full[it % STAGES];
+      mbar_expect(bar, ((VEC == 4 ? A_FLOATS : 0) + 2 * B_FLOATS) * sizeof(float));
+      if constexpr (VEC == 4) tma_load_2d(st, &e_map, k0, row0, bar);
+      bulk_copy(st + A_FLOATS, w_hi + b0, B_FLOATS * sizeof(float), bar);
+      bulk_copy(st + A_FLOATS + B_FLOATS, w_lo + b0, B_FLOATS * sizeof(float), bar);
+    }
+    ++ld_it;
+    if (++ld_ks == n_ks) {
+      ld_ks = 0;
+      if (++ld_half == n_half) {
+        ld_half = 0;
+        ld_row0 += gridDim.x * BM;
+      }
+    }
+  };
+
+  float acc[64];   // e_hi . W_hi
+  float accs[64];  // the cross terms e_lo . W_hi + e_hi . W_lo
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = accs[i] = 0.0f;
+  // A fragments, split: [buffer][k8 step][fragment register]. Two buffers,
+  // so a slice's fragments are written while the previous slice's wgmmas,
+  // which read the other buffer, may still run.
+  uint32_t ahi[2][KSTEPS][4] = {}, alo[2][KSTEPS][4] = {};
+  // ldmatrix.x4 addresses: matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7) of
+  // the warp's 16 rows give the tf32 A fragment a0..a3
+  const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * A_LD + (lane >> 4) * 4;
+
+  // The epilogue: this lane's 4 columns of each pass (half), their bias and
+  // moments; the pending pass (its tile's first row, its half) whose product
+  // sits in ctile, and this warp's next row k of it (tile row 16 * warp + k)
+  // with its endpoint rows loaded ahead. A warp's rows are neighbours, so an
+  // endpoint row already loaded for the row before (dst is sorted) is kept.
+  float bias[2][4], mom[2][4][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = col0 + h * NP + lane * 4 + q;
+      bias[h][q] = c < d ? b3[c] : 0.0f;
+      mom[h][q][0] = mom[h][q][1] = 0.0f;
+    }
+  }
+  int ep_row0 = -1, ep_half = 0, ep_k = ROWS_PER_WARP;
+  float x1[4], x2[4];
+  int x1_id = -1, x2_id = -1;  // the endpoint rows x1, x2 hold
+  // the endpoint ids of this warp's rows of a tile: lane k < 16 holds
+  // src[16 * warp + k], lane 16 + k dst[16 * warp + k]; read when a pass
+  // starts, used when its epilogue runs
+  int ep_ids = 0, next_ids = 0;
+  static_assert(ROWS_PER_WARP == 16, "one id per lane for the warp's rows");
+
+  auto prefetch = [&]() {
+    const int s_id = __shfl_sync(0xffffffffu, ep_ids, ep_k & 15);
+    const int d_id = __shfl_sync(0xffffffffu, ep_ids, 16 + (ep_k & 15));
+    const int row = ep_row0 + warp * ROWS_PER_WARP + ep_k;
+    if (ep_k >= ROWS_PER_WARP || row >= n_rows) return;
+    const int c = col0 + ep_half * NP + lane * 4;
+    auto load = [&](const float* table, int id, int& held, float (&x)[4]) {
+      if (id == held) return;
+      held = id;
+      const float* p = table + static_cast<int64_t>(id) * d + c;
+      if constexpr (VEC == 4) {
+        const float4 u = c < d ? __ldg(reinterpret_cast<const float4*>(p))
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[q] = c + q < d ? p[q] : 0.0f;
+      }
+    };
+    load(b1h, s_id, x1_id, x1);
+    load(b2h, d_id, x2_id, x2);
+  };
+
+  auto finish_rows = [&](int count) {
+    for (int i = 0; i < count && ep_k < ROWS_PER_WARP; ++i) {
+      const int r = warp * ROWS_PER_WARP + ep_k;
+      const int row = ep_row0 + r;
+      if (row < n_rows) {
+        const int c = col0 + ep_half * NP + lane * 4;
+        const float4 p = *reinterpret_cast<const float4*>(ctile + r * C_LD + lane * 4);
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+        float gv[4];
+        const bool real = row < n_real;
+        auto fold = [&](const float (&b)[4], float (&m)[4][2]) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            gv[q] = (x1[q] + x2[q]) + (pv[q] + b[q]);
+            if (real) {
+              m[q][0] += gv[q];
+              m[q][1] += gv[q] * gv[q];
+            }
+          }
+        };
+        if (ep_half == 0) {
+          fold(bias[0], mom[0]);
+        } else {
+          fold(bias[1], mom[1]);
+        }
+        float* pg = gate + static_cast<int64_t>(row) * d + c;
+        if constexpr (VEC == 4) {
+          if (c < d) __stcs(reinterpret_cast<float4*>(pg), make_float4(gv[0], gv[1], gv[2], gv[3]));
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (c + q < d) __stcs(pg + q, gv[q]);
+          }
+        }
+      }
+      ++ep_k;
+      prefetch();
+    }
+  };
+  // rows of the pending pass each warp finishes per K slice of the next
+  const int rows_per_step = (ROWS_PER_WARP + n_ks - 1) / n_ks;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  if (warp == 0 && out < 2 * (int64_t)d) {
-    float t = 0.0f;
-    for (int w = 0; w < 8; ++w) t += sm[w][lane];
-    mom[out] = t;
+#pragma unroll
+  for (int p = 0; p < STAGES - 2; ++p) {
+    if (p < total_it) load_slice();
   }
+
+  auto step = [&](auto buf, int it, bool first) {
+    constexpr int B = decltype(buf)::value;
+    __syncthreads();  // slice it - 2's wgmmas are done in every warp
+    if (ld_it < total_it) load_slice();  // slice it + 2, into it - 2's stage
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);  // slice it has landed
+    const float* st = smem + (it % STAGES) * STAGE_FLOATS;
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s) {
+      uint32_t raw[4];
+      ldmatrix_x4(raw, st + a_off + s * 8);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float x = __uint_as_float(raw[q]);
+        ahi[B][s][q] = tf32_rna(x);
+        alo[B][s][q] = tf32_rna(x - __uint_as_float(ahi[B][s][q]));
+      }
+    }
+    const float* sb = st + A_FLOATS;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s) {
+      const uint64_t dh = b_desc(sb + s * 8 * NP);  // k 8s..8s+7: k / 4 = 2s, 2s + 1
+      const uint64_t dl = b_desc(sb + B_FLOATS + s * 8 * NP);
+      const int keep = (first && s == 0) ? 0 : 1;
+      wgmma_m64n128k8(accs, alo[B][s], dh, keep);
+      wgmma_m64n128k8(accs, ahi[B][s], dl, 1);
+      wgmma_m64n128k8(acc, ahi[B][s], dh, keep);
+    }
+    wgmma_commit();
+    finish_rows(rows_per_step);  // the pending pass, while the products run
+    wgmma_wait<1>();  // the other buffer's slice is done: its registers are free
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        pin(ahi[1 - B][s][q]);
+        pin(alo[1 - B][s][q]);
+      }
+    }
+  };
+
+  const int g = lane >> 2, t = lane & 3;  // accumulator rows g, g + 8; columns 8j + 2t + c
+  for (int pass = 0; pass < n_pass; ++pass) {
+    {
+      const int r =
+          (blockIdx.x + (pass / n_half) * gridDim.x) * BM + warp * ROWS_PER_WARP + (lane & 15);
+      next_ids = r < n_rows ? (lane < 16 ? src[r] : dst[r]) : 0;
+    }
+    for (int ks = 0; ks < n_ks; ks += 2) {  // n_ks is even
+      step(std::integral_constant<int, 0>{}, pass * n_ks + ks, ks == 0);
+      step(std::integral_constant<int, 1>{}, pass * n_ks + ks + 1, false);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      pin(acc[i]);
+      pin(accs[i]);
+    }
+    finish_rows(ROWS_PER_WARP);  // none left when n_ks * rows_per_step covers them
+    __syncthreads();  // every warp is done with the pending pass's ctile
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(ctile + (warp * 16 + g + 8 * h) * C_LD + 8 * j + 2 * t) =
+            make_float2(accs[4 * j + 2 * h] + acc[4 * j + 2 * h],
+                        accs[4 * j + 2 * h + 1] + acc[4 * j + 2 * h + 1]);
+      }
+    }
+    ep_row0 = (blockIdx.x + (pass / n_half) * gridDim.x) * BM;
+    ep_half = pass % n_half;
+    ep_ids = next_ids;
+    x1_id = x2_id = -1;
+    ep_k = 0;
+    prefetch();
+    // the next slice's __syncthreads publishes ctile before any row of it is read
+  }
+  __syncthreads();
+  finish_rows(ROWS_PER_WARP);  // the last pass
+
+  // the warps' column moments meet in shared memory: red[warp][stat][BN]
+  __syncthreads();
+  float* red = smem;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = h * NP + lane * 4 + q;
+      red[(warp * 2) * BN + col] = mom[h][q][0];
+      red[(warp * 2 + 1) * BN + col] = mom[h][q][1];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * BN; i += THREADS) {
+    const int stat = i / BN, col = i % BN;
+    float s = 0.0f;
+    for (int w = 0; w < WARPS; ++w) s += red[(w * 2 + stat) * BN + col];
+    if (col0 + col < d) partial[(static_cast<int64_t>(blockIdx.x) * 2 + stat) * d + col0 + col] = s;
+  }
+}
+
+// mom[2, d] = sum over the blocks' partial rows [n_parts, 2, d], in a fixed order
+__global__ void __launch_bounds__(256) moments_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ mom, int n_parts, int d) {
+  gnnome::reduce_partials(partial, mom, n_parts, 2 * static_cast<int64_t>(d));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The e tile's TMA descriptor: [n_rows, d] f32, boxes of BM rows x A_LD
+// columns, zeros outside.
+cudaError_t e_tensor_map(CUtensorMap* map, const float* e, int64_t n_rows, int d) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(n_rows > 0 ? n_rows : 1)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(float)};
+  const cuuint32_t box[2] = {A_LD, BM};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(e), dims,
+                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int VEC>
+cudaError_t launch_front(const float* b1h, const float* b2h, const float* e,
+                         const float* w_hi, const float* w_lo, const float* b3,
+                         const int* src, const int* dst, float* gate, float* partial,
+                         int n_rows, int n_real, int d, int n_ks, int n_parts,
+                         cudaStream_t s) {
+  CUtensorMap map = {};
+  cudaError_t err = VEC == 4 ? e_tensor_map(&map, e, n_rows, d) : cudaSuccess;
+  if (err != cudaSuccess) return err;
+  err = gnnome::allow_smem(gate_front_kernel<VEC>, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_parts, (d + BN - 1) / BN);
+  gate_front_kernel<VEC><<<grid, THREADS, SMEM_BYTES, s>>>(
+      map, b1h, b2h, e, w_hi, w_lo, b3, src, dst, gate, partial, n_rows, n_real, d, n_ks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// partial: scratch f32 [n_parts, 2, d]; n_parts blocks walk the row tiles.
+// partial: scratch f32 [n_parts, 2, d]; n_parts blocks walk the 128-row
+// tiles. w3_split: scratch f32 [2, ceil(d / 256), n_ks, 16, 256] with
+// n_ks = 2 * ceil(d / 32) (the hi and lo parts). vec4: d % 4 == 0 and the
+// row tensors' bases 16-byte aligned.
 GNNOME_API int gnnome_gate_front_f32(
     const float* b1h, const float* b2h, const float* e, const float* w3,
     const float* b3, const int* src, const int* dst, float* gate,
-    float* partial, float* mom, int64_t n_rows, int64_t n_real, int d,
-    int n_parts, int device, void* stream) {
+    float* partial, float* mom, float* w3_split, int64_t n_rows, int64_t n_real, int d,
+    int n_parts, int vec4, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_parts < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_parts < 1 || d < 1 || n_rows > (int64_t{1} << 31) - 2 * BM)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_parts, (d + BN - 1) / BN);
-  gate_front_kernel<<<grid, THREADS, 0, s>>>(b1h, b2h, e, w3, b3, src, dst,
-                                             gate, partial, n_rows, n_real, d);
+  const int n_ks = 2 * ((d + 2 * BK - 1) / (2 * BK));
+  const int64_t part = static_cast<int64_t>((d + BN - 1) / BN) * 2 * n_ks * B_FLOATS;
+  float* w_hi = w3_split;
+  float* w_lo = w3_split + part;
+  w3_split_kernel<<<gnnome::grid_for(part, 256), 256, 0, s>>>(w3, w_hi, w_lo, d, n_ks, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  moments_reduce_kernel<<<(2 * d + 31) / 32, 256, 0, s>>>(partial, mom,
-                                                          n_parts, d);
+  const int rows = static_cast<int>(n_rows);
+  const int real = static_cast<int>(n_real < n_rows ? n_real : n_rows);
+  err = vec4 ? launch_front<4>(b1h, b2h, e, w_hi, w_lo, b3, src, dst, gate, partial, rows,
+                               real, d, n_ks, n_parts, s)
+             : launch_front<1>(b1h, b2h, e, w_hi, w_lo, b3, src, dst, gate, partial, rows,
+                               real, d, n_ks, n_parts, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moments_reduce_kernel<<<(2 * d + 31) / 32, 256, 0, s>>>(partial, mom, n_parts, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,44 +2,134 @@
 // [0, n_rows) (PAD_SEGMENT on padded edges).
 //
 // Replaces: gnnome_tpu/ops/banded.py:banded_take_pallas (reached through
-// take_rows / gather_by_endpoint; the score head's two endpoint gathers,
-// gnnome_tpu/models/model.py:67-69).
+// take_rows / gather_by_endpoint: the score head's two endpoint gathers at
+// D = 64, the LayerNorm layer's endpoint gathers at D = 256 and the wide
+// layer's paired rows at 2D = 512, gnnome_tpu/models/gated_gcn.py).
 //
-// Bound on the H100: bytes. At E = 1M ids and D = 256 f32 it moves 1.02 GB
-// of output, 4 MB of ids and at most 154 MB of a 150k-row table: about
-// 1.18 GB, 0.35 ms at 3.35 TB/s. On the score-head path D = 64 (the
-// hidden_edge_scores projection): about 0.30 GB, 0.09 ms.
+// Bound on the H100: bytes. At E = 1M ids and D = 512 f32 it writes 2.05 GB
+// and reads 4 MB of ids and at most 307 MB of a 150k-row table: 0.70 ms at
+// 3.35 TB/s (D = 256: 0.35 ms; D = 64: 0.09 ms).
 //
-// Design: one thread per 16-byte chunk of an output row (4 floats when
-// D % 4 == 0, else one float), grid-stride over all chunks, so neighbouring
-// threads write neighbouring addresses and each table row is read with
-// full-width loads. The TPU kernel's band plans and one-hot selection exist
-// because the TPU is slow at random row reads; Hopper's memory system
-// serves them directly, so no banding is assumed.
+// Design, for a gather that is all memory traffic (bulk asynchronous copies
+// of whole rows through shared memory were tried and were no faster):
+// - Whole rows per lane group. A group of 8, 16 or 32 lanes (the power of
+//   two nearest d / VEC, at most a warp) owns an output row; its number
+//   comes from the warp index, so no thread divides an index per chunk. One
+//   lane reads each id and the group takes it with __shfl_sync.
+// - Several rows in flight. Each lane issues the 16-byte loads of 4 rows
+//   (CH = 1, 2 or 4 chunks each) before any store, so it has up to 16
+//   independent loads outstanding, where a chunk per thread had one.
+// - Cache policy. The output is written once and is 40x the L2: it leaves
+//   with streaming stores (st.global.cs) and does not evict the table,
+//   whose rows neighbouring edges share (the local graph's src ids lie
+//   within 22 of each other, dst is sorted); table loads stay cached.
+// VEC = 4 moves 16-byte chunks (d % 4 == 0, aligned bases); VEC = 1 moves
+// single floats for any other width.
 #include "common.cuh"
 
 namespace {
 
+constexpr int THREADS = 256;
+// a grid-stride walk over at most this many blocks a SM: the best of 4-32
+// on the H100 at D = 64, 256 and 512 (PERF.md section 6)
+constexpr int BLOCKS_PER_SM = 32;
+constexpr int ROWS = 4;  // rows a lane group has in flight
+constexpr unsigned FULL = 0xffffffffu;
+
 template <int VEC>
-__global__ void __launch_bounds__(256) take_rows_kernel(
+struct Chunk;
+template <>
+struct Chunk<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <>
+struct Chunk<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+};
+
+// lanes_log2: log2 of the lanes that share a row (3, 4 or 5); a warp holds
+// 32 >> lanes_log2 row slots and takes ROWS rows per slot at a time, CH
+// chunks of each per lane.
+template <int VEC, int CH>
+__global__ void __launch_bounds__(THREADS) take_rows_kernel(
     const float* __restrict__ table, const int* __restrict__ ids,
-    float* __restrict__ out, int64_t n_ids, int64_t n_rows, int d) {
-  const int per_row = d / VEC;
-  const int64_t total = n_ids * per_row;
-  for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = t / per_row;
-    const int c = static_cast<int>(t - i * per_row) * VEC;
-    const int id = ids[i];
-    float v[VEC];
-    if (id >= 0 && id < n_rows) {
-      gnnome::load_vec<VEC>(table + (int64_t)id * d + c, v);
-    } else {
+    float* __restrict__ out, int n_ids, int n_rows, int d, int lanes_log2) {
+  using T = typename Chunk<VEC>::T;
+  const int per_row = d / VEC;  // chunks in a row
+  const int lanes = 1 << lanes_log2;
+  const int lane = threadIdx.x & 31;
+  const int slot = lane >> lanes_log2;
+  const int sl = lane & (lanes - 1);
+  const int slots = 32 >> lanes_log2;
+  const int rows_per_warp = slots * ROWS;  // <= 32: one id per lane
+  const int warp = (blockIdx.x * THREADS + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * THREADS) >> 5;
+  const T* __restrict__ tab = reinterpret_cast<const T*>(table);
+  T* __restrict__ dst = reinterpret_cast<T*>(out);
+
+  for (int base = warp * rows_per_warp; base < n_ids; base += n_warps * rows_per_warp) {
+    const int q = base + lane;
+    const int my_id = (lane < rows_per_warp && q < n_ids) ? ids[q] : -1;
+    // row r of this lane's slot is base + r * slots + slot: the slots of a
+    // warp write neighbouring rows
+    int id[ROWS];
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) v[q] = 0.0f;
+    for (int r = 0; r < ROWS; ++r) id[r] = __shfl_sync(FULL, my_id, r * slots + slot);
+    for (int c0 = sl; c0 < per_row; c0 += lanes * CH) {
+      T v[ROWS][CH];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const bool hit = static_cast<unsigned>(id[r]) < static_cast<unsigned>(n_rows);
+        const T* row = tab + static_cast<int64_t>(hit ? id[r] : 0) * per_row;
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+          const int c = c0 + k * lanes;
+          v[r][k] = (hit && c < per_row) ? row[c] : Chunk<VEC>::zero();
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = base + r * slots + slot;
+        if (i >= n_ids) break;
+        T* row = dst + static_cast<int64_t>(i) * per_row;
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+          const int c = c0 + k * lanes;
+          if (c < per_row) __stcs(row + c, v[r][k]);
+        }
+      }
     }
-    gnnome::store_vec<VEC>(out + i * d + c, v);
   }
+}
+
+template <int VEC, int CH>
+cudaError_t launch(const float* table, const int* ids, float* out, int n_ids,
+                   int n_rows, int d, int lanes_log2, int device, cudaStream_t s) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t rows_per_block = (THREADS / 32) * (32 >> lanes_log2) * ROWS;
+  const unsigned grid = gnnome::grid_for(n_ids, static_cast<int>(rows_per_block),
+                                         static_cast<int64_t>(sms) * BLOCKS_PER_SM);
+  take_rows_kernel<VEC, CH><<<grid, THREADS, 0, s>>>(table, ids, out, n_ids, n_rows,
+                                                          d, lanes_log2);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t dispatch(const float* table, const int* ids, float* out, int n_ids,
+                     int n_rows, int d, int device, cudaStream_t s) {
+  const int per_row = d / VEC;
+  int lanes_log2 = 3;  // 8 lanes at least, so a warp's rows in flight fit 32 ids
+  while (lanes_log2 < 5 && (1 << lanes_log2) < per_row) ++lanes_log2;
+  const int per_lane = (per_row + (1 << lanes_log2) - 1) >> lanes_log2;
+  if (per_lane <= 1)
+    return launch<VEC, 1>(table, ids, out, n_ids, n_rows, d, lanes_log2, device, s);
+  if (per_lane <= 2)
+    return launch<VEC, 2>(table, ids, out, n_ids, n_rows, d, lanes_log2, device, s);
+  return launch<VEC, 4>(table, ids, out, n_ids, n_rows, d, lanes_log2, device, s);
 }
 
 }  // namespace
@@ -51,14 +141,13 @@ GNNOME_API int gnnome_take_rows_f32(const float* table, const int* ids,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_ids == 0 || d == 0) return 0;
+  // 32-bit row and chunk numbers; the grid-stride step stays below 2^31
+  if (n_ids > (int64_t{1} << 30) || n_rows > (int64_t{1} << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  if (vec4) {
-    take_rows_kernel<4><<<gnnome::grid_for(n_ids * (d / 4), threads),
-                          threads, 0, s>>>(table, ids, out, n_ids, n_rows, d);
-  } else {
-    take_rows_kernel<1><<<gnnome::grid_for(n_ids * d, threads), threads, 0,
-                          s>>>(table, ids, out, n_ids, n_rows, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  err = vec4 ? dispatch<4>(table, ids, out, static_cast<int>(n_ids),
+                           static_cast<int>(n_rows), d, device, s)
+             : dispatch<1>(table, ids, out, static_cast<int>(n_ids),
+                           static_cast<int>(n_rows), d, device, s);
+  return static_cast<int>(err);
 }

@@ -2,8 +2,10 @@
 BatchNorm moments over real edges, in one pass.
 
 Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:gate_front_pallas``. The
-CUDA kernel is ``csrc/gate_front.cu`` (the ``e·W3`` product runs inside
-it); the plain version below is its CPU form and its reference on the card.
+CUDA kernel is ``csrc/gate_front.cu``: the ``e·W3`` product runs inside it,
+on the tensor cores as a 3-pass split-TF32 product with f32 accuracy, as
+the TPU kernel runs it on the MXU at ``Precision.HIGHEST``. The plain
+version below is its CPU form and its reference on the card.
 Its backward (:class:`GateFront`, the JAX ``_gate_front_bwd``) runs
 ``csrc/gate_front_bwd.cu`` (``gate_front_bwd_stream_pallas``) and the two
 endpoint segment sums; the B3 gradients are matrix products.
@@ -19,7 +21,7 @@ from gnnome_tpu_torch.ops.segment_sum import segment_sum
 
 GATE_FRONT = register(Kernel(
     "gate_front", "gnnome_gate_front_f32",
-    [P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32],
+    [P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_front.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:2669 gate_front_pallas"))
 GATE_FRONT_BWD = register(Kernel(
@@ -28,8 +30,12 @@ GATE_FRONT_BWD = register(Kernel(
     source="gnnome_tpu_torch/csrc/gate_front_bwd.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:1031 gate_front_bwd_stream_pallas"))
 
-# blocks that walk the 64-edge row tiles (csrc/gate_front.cu); each leaves
-# one partial moments row, summed in a fixed order by a second kernel
+# csrc/gate_front.cu: one block per SM walks the 128-edge row tiles and
+# leaves one partial moments row, summed in a fixed order by a second
+# kernel; W3 is split into tf32 hi/lo parts, padded to 256-column blocks
+# and K slices of 16 (an even count of them), in scratch the wrapper gives
+_FRONT_ROW_TILE, _FRONT_COLS, _FRONT_K = 128, 256, 16
+# csrc/gate_front_bwd.cu: blocks that walk its 64-edge row tiles
 _ROW_TILE = 64
 _MAX_PARTS = 1024
 
@@ -54,14 +60,19 @@ def gate_front(b1h: torch.Tensor, b2h: torch.Tensor, e: torch.Tensor,
     n_rows, d = e.shape
     if w3.shape != (d, d) or b1h.shape[1] != d or b2h.shape[1] != d:
         raise ValueError("gate_front: width mismatch")
-    n_parts = max(1, min(_MAX_PARTS, -(-n_rows // _ROW_TILE)))
+    sms = torch.cuda.get_device_properties(e.device).multi_processor_count
+    n_parts = max(1, min(sms, -(-n_rows // _FRONT_ROW_TILE)))
+    n_ks = 2 * -(-d // (2 * _FRONT_K))
+    n_cb = -(-d // _FRONT_COLS)
     gate = torch.empty_like(e)
     partial = torch.empty((n_parts, 2, d), dtype=torch.float32, device=e.device)
     mom = torch.empty((2, d), dtype=torch.float32, device=e.device)
+    w3_split = torch.empty((2, n_cb * n_ks * _FRONT_K * _FRONT_COLS), dtype=torch.float32,
+                           device=e.device)
     GATE_FRONT(e.device, b1h.data_ptr(), b2h.data_ptr(), e.data_ptr(),
                w3.data_ptr(), b3.data_ptr(), src.data_ptr(), dst.data_ptr(),
-               gate.data_ptr(), partial.data_ptr(), mom.data_ptr(),
-               n_rows, n_real, d, n_parts)
+               gate.data_ptr(), partial.data_ptr(), mom.data_ptr(), w3_split.data_ptr(),
+               n_rows, n_real, d, n_parts, int(vec4_ok(d, b1h, b2h, e, b3, gate)))
     return gate, mom
 
 

@@ -8,7 +8,8 @@ also runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: the kernels sum in f32 in another order than the plain
-versions (cuBLAS for ``e·W3``, ``index_add_`` for the segment sums), so
+versions (the split-TF32 tensor-core product for ``e·W3`` against cuBLAS
+in f32, ``index_add_`` for the segment sums), so
 sums carry a few f32 ulps of their magnitude: rtol = atol = 1e-5 on
 per-edge and per-node values, and the sums over every edge (the BatchNorm
 moments, ``d_bias3``, ``d_affine``) are compared as means (divided by the
@@ -71,7 +72,7 @@ def _randn(rng, *shape, device, scale=1.0):
         (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("d", [30, 64, 256])
+@pytest.mark.parametrize("d", [30, 64, 256, 512])
 def test_take_rows_kernel(cuda, d):
     g, rng = _graph(1, device=cuda)
     table = _randn(rng, g.n_nodes_padded, d, device=cuda)
@@ -97,6 +98,26 @@ def test_gate_front_kernel(cuda, d):
     torch.cuda.synchronize()
     torch.testing.assert_close(gate, ref_gate, **TOL)
     torch.testing.assert_close(mom / g.n_edges, ref_mom / g.n_edges, **TOL)
+
+
+@pytest.mark.parametrize("n_rows,n_real,d", [(1037, 1037, 256), (1037, 300, 256),
+                                             (1037, 300, 30)])
+def test_gate_front_kernel_ragged(cuda, n_rows, n_real, d):
+    """Edge rows that do not fill the last 128-row tile, and real rows well
+    below the padded count: the ragged tile and the moments' row mask."""
+    rng = np.random.default_rng(15)
+    n = 300
+    ids = [torch.from_numpy(rng.integers(0, n, n_rows).astype(np.int32)).to(cuda)
+           for _ in range(2)]
+    args = (_randn(rng, n, d, device=cuda), _randn(rng, n, d, device=cuda),
+            _randn(rng, n_rows, d, device=cuda),
+            _randn(rng, d, d, device=cuda, scale=d ** -0.5),
+            _randn(rng, d, device=cuda), *ids, n_real)
+    gate, mom = gate_front(*args)
+    ref_gate, ref_mom = gate_front_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gate, ref_gate, **TOL)
+    torch.testing.assert_close(mom / n_real, ref_mom / n_real, **TOL)
 
 
 @pytest.mark.parametrize("d", [30, 64, 256])
