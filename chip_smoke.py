@@ -7,7 +7,10 @@ Phases, each printed as it starts (flush=True, so a cut run shows where it
 stopped); any failure raises and exits non-zero:
 
 1. build   — compile ``gnnome_tpu_torch/csrc/*.cu`` with nvcc (sm_90a) into
-             ``gnnome_tpu_torch/_build/`` (cached by source hash).
+             ``gnnome_tpu_torch/_build/`` (cached by source hash), and beside
+             it the native host library (``make -C native``: partitioner,
+             overlap-graph builder, read simulator) that the later phases
+             use as the JAX package would.
 2. parity  — each kernel entry against its plain PyTorch version on the
              card, at the shapes the main paths give it, with a stated
              tolerance; kernel, plain and (where one exists) library-call
@@ -39,8 +42,9 @@ stopped); any failure raises and exits non-zero:
              steps after a warm-up, peak memory, a torch.profiler breakdown
              and a finite loss on every step.
 5. end to end — ``inference()`` from simulated reads to contigs on a 60 kb
-             genome with a planted repeat; its edge probabilities are held
-             against the port's CPU path (the plain versions) on that graph.
+             genome with a planted repeat (graph by the native builder);
+             its edge probabilities are held against the port's CPU path
+             (the plain versions) on that graph.
 6. gradients and the loop — on that genome, the 16-layer, D=256 model's
              parameter gradients on the card against the port's CPU path
              (per leaf, relative norm) for the BatchNorm, LayerNorm,
@@ -48,11 +52,27 @@ stopped); any failure raises and exits non-zero:
              wide models, with their launch counts, then ``train()`` for 2
              epochs and a resume to 4, for the BatchNorm and the LayerNorm
              model.
+7. ClusterGCN — the default ``Config`` (16 layers, D=256, 500 parts in
+             batches of 50, jitter 100, ``remat="layer"``) on the local bench
+             graph: two training epochs and one cluster-validation pass of
+             ``_epoch_pass`` with the port's samplers on the native
+             partitioner; per epoch the drawn part count, edge cut, pieces
+             and their sizes, sampler host seconds, piece-step ms (CUDA
+             events), wall seconds; the second epoch under torch.profiler
+             (idle share); launches of one piece step against the stated
+             counts; peak memory.
+8. ClusterGCN on the genome — the sampler's pieces equal on the card and
+             the CPU, one piece's gradients card vs CPU, ``train()`` under a
+             ClusterGCN config with a resume.
+9. pipeline — ``example.synthetic_example`` on the card (native simulator
+             and builder, 15 epochs of an 8-layer, 128-wide model, then
+             ``predict``): an assembly with contigs.
 
 The line before last is the kernel table as JSON (``launches``: one
 training step, under ``remat="layer"``, of the first of the BatchNorm,
 LayerNorm, wide and LayerNorm + wide steps that runs the kernel; every
-count in ``launches_by_path``; rows 12-13 are not on a model path, and say
+count in ``launches_by_path``, the ClusterGCN piece step and phases 7
+and 9 as a whole among them; rows 12-13 are not on a model path, and say
 so), the one before that the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the package beside it, the script prints
@@ -638,6 +658,7 @@ def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> 
     """Reads to contigs; returns the genome's data directory."""
     import numpy as np
 
+    from gnnome_tpu_torch.data import native_bridge
     from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
     from gnnome_tpu_torch.data.simulate import simulate_reads, write_fasta
     from gnnome_tpu_torch.decode.inference import inference, load_model, score_graph
@@ -653,7 +674,8 @@ def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> 
     records = simulate_reads("".join(genome), coverage=14.0,
                              lengths=np.full(200, 2200, dtype=np.int64), seed=seed + 1)
     write_fasta(str(data / "raw" / "0.fasta"), records)
-    log(f"  simulated {len(records)} reads of a 60 kb genome")
+    log(f"  simulated {len(records)} reads of a 60 kb genome; overlap graph builder: "
+        f"{'native' if native_bridge.available() else 'Python'}")
 
     t0 = time.perf_counter()
     walks, contigs = inference(str(data), str(model_path), cfg,
@@ -682,6 +704,88 @@ def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> 
     return data
 
 
+def grads_against_cpu(torch, samples: dict, seed: int, variant: str, label: str,
+                      device="cuda") -> dict:
+    """The 16-layer, D=256 model's parameter gradients on ``samples[device]``
+    against ``samples["cpu"]`` (the same graph), per leaf, with the launch
+    counts of the card's step checked; returns those counts."""
+    from gnnome_tpu_torch.config import ModelConfig
+    from gnnome_tpu_torch.evaluation.metrics import bce_with_logits
+    from gnnome_tpu_torch.models.model import init_model_params, model_forward
+    from gnnome_tpu_torch.train.checkpoint import iter_leaves
+
+    batch_norm, wide = VARIANTS[variant]
+    grads, launches = [], None
+    for dev, s in samples.items():
+        y = s.y[: s.graph.n_edges]
+        pos_weight = (1 - y).sum() / y.sum()
+        params = init_model_params(torch.Generator().manual_seed(seed), ModelConfig(), dev)
+        leaves = dict(iter_leaves(params))
+        for leaf in leaves.values():
+            leaf.requires_grad_(True)
+        reset_launches()
+        logits = model_forward(params, s.graph, s.e_feat, s.pe, batch_norm=batch_norm,
+                               wide_gathers=wide, remat="layer")
+        bce_with_logits(logits, s.y, s.graph.edge_mask, pos_weight).backward()
+        if dev == device:
+            torch.cuda.synchronize()
+            launches = read_launches()
+            if launches != expected_launches(variant, "layer"):
+                raise AssertionError(f"{label}: launch counts {launches}, "
+                                     f"expected {expected_launches(variant, 'layer')}")
+        grads.append({k: leaf.grad.cpu() for k, leaf in leaves.items()})
+    got, ref = grads
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in ref.values())))
+    errs, noise = {}, {}
+    for k, r in ref.items():
+        if float(r.norm()) <= NOISE * total:
+            noise[k] = float(got[k].norm()) / total
+        else:
+            errs[k] = float((got[k] - r).norm() / r.norm())
+    worst = max(errs, key=errs.get)
+    log(f"  {label}: {s.graph.n_nodes} nodes, {s.graph.n_edges} edges; parameter "
+        f"gradients, card vs CPU: worst leaf {worst} {errs[worst]:.3e} (tol {GRAD_TOL}); "
+        f"median leaf {sorted(errs.values())[len(errs) // 2]:.3e}; {len(noise)} leaves "
+        f"at rounding noise on the CPU, on the card at most "
+        f"{max(noise.values(), default=0.0):.2e} of the gradient norm "
+        f"(tol {10 * NOISE:.0e}); launches checked")
+    if errs[worst] > GRAD_TOL or max(noise.values(), default=0.0) > 10 * NOISE:
+        raise AssertionError(f"{label}: parameter gradients: card and CPU disagree")
+    return launches
+
+
+def train_with_resume(cfg, data: Path, work: Path, label: str, device="cuda",
+                      learns: bool = True) -> list:
+    """``train()`` for 2 epochs, then again for 4: the second call must
+    resume at epoch 2 and keep the first two losses. Returns the 4 losses."""
+    from gnnome_tpu_torch.train.loop import train
+
+    shutil.rmtree(work, ignore_errors=True)
+    cfg.train.checkpoint_dir = str(work / "checkpoints")
+    cfg.train.pretrained_dir = str(work / "pretrained")
+    logs = []
+
+    def log_fn(msg):
+        logs.append(msg)
+        log(f"  {label}: {msg}")
+
+    cfg.train.num_epochs = 2
+    first = train(str(data), None, out="smoke", overfit=True, cfg=cfg, log_fn=log_fn,
+                  device=device)
+    cfg.train.num_epochs = 4
+    second = train(str(data), None, out="smoke", overfit=True, cfg=cfg, log_fn=log_fn,
+                   device=device)
+    losses = second["loss_train"]
+    if not any(m.startswith("Resumed") and m.endswith("at epoch 2") for m in logs):
+        raise AssertionError(f"{label}: train() did not resume at epoch 2")
+    if losses[:2] != first["loss_train"] or len(losses) != 4 \
+            or (learns and not losses[-1] < losses[0]) \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: train losses {first['loss_train']} then {losses}")
+    log(f"  {label}: train losses over 4 epochs: {[round(x, 5) for x in losses]}")
+    return losses
+
+
 def phase_gradients_and_loop(torch, data: Path, seed: int, device="cuda") -> dict:
     """The 16-layer, D=256 model's gradients on ``device`` against the CPU
     path on the genome graph, for each model variant, then ``train()`` with
@@ -689,84 +793,267 @@ def phase_gradients_and_loop(torch, data: Path, seed: int, device="cuda") -> dic
     counts of each variant's step on the card."""
     from gnnome_tpu_torch.config import Config
     from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
-    from gnnome_tpu_torch.evaluation.metrics import bce_with_logits
-    from gnnome_tpu_torch.models.model import init_model_params, model_forward
-    from gnnome_tpu_torch.train.checkpoint import iter_leaves
-    from gnnome_tpu_torch.train.loop import train
 
     cfg = Config()
     samples = {dev: AssemblyGraphDataset(str(data), cfg.model.nb_pos_enc, device=dev)[0][1]
                for dev in (device, "cpu")}
-    launches = {}
-    for variant, (batch_norm, wide) in VARIANTS.items():
-        grads = []
-        for dev, s in samples.items():
-            y = s.y[: s.graph.n_edges]
-            pos_weight = (1 - y).sum() / y.sum()
-            params = init_model_params(torch.Generator().manual_seed(seed), cfg.model, dev)
-            leaves = dict(iter_leaves(params))
-            for leaf in leaves.values():
-                leaf.requires_grad_(True)
-            reset_launches()
-            logits = model_forward(params, s.graph, s.e_feat, s.pe, batch_norm=batch_norm,
-                                   wide_gathers=wide, remat="layer")
-            bce_with_logits(logits, s.y, s.graph.edge_mask, pos_weight).backward()
-            if dev == device:
-                torch.cuda.synchronize()
-                launches[variant] = read_launches()
-                if launches[variant] != expected_launches(variant, "layer"):
-                    raise AssertionError(f"{variant}: launch counts {launches[variant]}, "
-                                         f"expected {expected_launches(variant, 'layer')}")
-            grads.append({k: leaf.grad.cpu() for k, leaf in leaves.items()})
-        got, ref = grads
-        total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in ref.values())))
-        errs, noise = {}, {}
-        for k, r in ref.items():
-            if float(r.norm()) <= NOISE * total:
-                noise[k] = float(got[k].norm()) / total
-            else:
-                errs[k] = float((got[k] - r).norm() / r.norm())
-        worst = max(errs, key=errs.get)
-        log(f"  {variant}: {s.graph.n_nodes} nodes, {s.graph.n_edges} edges; parameter "
-            f"gradients, card vs CPU: worst leaf {worst} {errs[worst]:.3e} (tol {GRAD_TOL}); "
-            f"median leaf {sorted(errs.values())[len(errs) // 2]:.3e}; {len(noise)} leaves "
-            f"at rounding noise on the CPU, on the card at most "
-            f"{max(noise.values(), default=0.0):.2e} of the gradient norm "
-            f"(tol {10 * NOISE:.0e}); launches checked")
-        if errs[worst] > GRAD_TOL or max(noise.values(), default=0.0) > 10 * NOISE:
-            raise AssertionError(f"{variant}: parameter gradients: card and CPU disagree")
-
+    launches = {variant: grads_against_cpu(torch, samples, seed, variant, variant, device)
+                for variant in VARIANTS}
     for variant in ("batchnorm", "layernorm"):
-        work = WORK / "train" / variant
-        shutil.rmtree(work, ignore_errors=True)
         cfg = Config()
         cfg.model.batch_norm = VARIANTS[variant][0]
-        cfg.train.num_parts_train = 1  # full-graph; ClusterGCN is not ported
-        cfg.train.checkpoint_dir = str(work / "checkpoints")
-        cfg.train.pretrained_dir = str(work / "pretrained")
-        logs = []
-
-        def log_fn(msg):
-            logs.append(msg)
-            log(f"  {variant}: {msg}")
-
-        cfg.train.num_epochs = 2
-        first = train(str(data), None, out="smoke", overfit=True, cfg=cfg, log_fn=log_fn,
-                      device=device)
-        cfg.train.num_epochs = 4
-        second = train(str(data), None, out="smoke", overfit=True, cfg=cfg, log_fn=log_fn,
-                       device=device)
-        losses = second["loss_train"]
-        if not any(m.startswith("Resumed") and m.endswith("at epoch 2") for m in logs):
-            raise AssertionError(f"{variant}: train() did not resume at epoch 2")
+        cfg.train.num_parts_train = 1  # full-graph (phase 8 trains on ClusterGCN pieces)
         # the BatchNorm model learns this graph within 4 epochs at lr 1e-3;
         # the LayerNorm one from the same seed still swings over them, so it
         # is held to the resume and to finite losses
-        learned = losses[-1] < losses[0] or variant != "batchnorm"
-        if losses[:2] != first["loss_train"] or len(losses) != 4 or not learned \
-                or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"{variant}: train losses {first['loss_train']} then {losses}")
-        log(f"  {variant}: train losses over 4 epochs: {[round(x, 5) for x in losses]}")
+        train_with_resume(cfg, data, WORK / "train" / variant, variant, device,
+                          learns=variant == "batchnorm")
+    return launches
+
+
+def bench_sample(torch, seed: int, device="cuda"):
+    """A GraphSample of the local bench graph on the card: bench features
+    and labels, zero host metadata (the sampler only slices it)."""
+    import numpy as np
+
+    from gnnome_tpu_torch.core.graph import build_graph
+    from gnnome_tpu_torch.data.dataset import GraphSample
+    from gnnome_tpu_torch.data.synthetic import bench_edges, bench_features, bench_labels
+
+    src, dst = bench_edges(N_NODES, N_EDGES, seed)
+    graph = build_graph(src, dst, N_NODES, device=device)
+    e_feat, pe = bench_features(graph, seed, 16)
+    e, n = len(src), N_NODES
+    return GraphSample(idx=0, graph=graph, e_feat=e_feat, pe=pe, y=bench_labels(graph, seed),
+                       prefix_length=np.zeros(e, np.int64), read_length=np.zeros(n, np.int64),
+                       overlap_length=np.zeros(e, np.int64),
+                       overlap_similarity=np.zeros(e, np.float32), src=src, dst=dst)
+
+
+class SamplerProbe:
+    """Wraps a ClusterGCN sampler: the host seconds of each call, its
+    pieces, and the part counts and partitions it drew (read by recording
+    the partitioner ``train/cluster.py`` calls)."""
+
+    def __init__(self, sampler):
+        from gnnome_tpu_torch.train import cluster
+
+        self.sampler, self.seconds, self.pieces, self.drawn = sampler, [], [], []
+        self._cluster, self._partition = cluster, cluster.partition_nodes
+
+    def _record(self, src, dst, n, k, *args, **kw):
+        t0 = time.perf_counter()
+        parts = self._partition(src, dst, n, k, *args, **kw)
+        self.drawn.append((k, parts, time.perf_counter() - t0))
+        return parts
+
+    def __call__(self, sample):
+        self._cluster.partition_nodes = self._record
+        try:
+            t0 = time.perf_counter()
+            pieces = self.sampler(sample)
+            self.seconds.append(time.perf_counter() - t0)
+        finally:
+            self._cluster.partition_nodes = self._partition
+        self.pieces.append(pieces)
+        return pieces
+
+
+class StepProbe:
+    """Wraps ``train/loop.py``'s step function (``train_step`` or
+    ``eval_step``): CUDA events around each call, and the launch counts of
+    the first call (the difference of the counters around it, so the
+    path's own totals run on)."""
+
+    def __init__(self, torch, loop, name: str):
+        self.torch, self.loop, self.name = torch, loop, name
+        self.step, self.events, self.first = getattr(loop, name), [], None
+
+    def __call__(self, *args, **kw):
+        before = read_launches() if self.first is None else None
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.step(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        if before is not None:
+            self.torch.cuda.synchronize()
+            after = read_launches()
+            self.first = {k: after[k] - before[k] for k in after}
+        return out
+
+    def __enter__(self):
+        setattr(self.loop, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.loop, self.name, self.step)
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def phase_cluster(torch, seed: int, device="cuda") -> dict:
+    """ClusterGCN training at full width under the default Config: two
+    training epochs and one cluster-validation pass of ``_epoch_pass`` over
+    the local bench graph. Returns the launch counts of one piece step and
+    of the whole phase."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.data import native_bridge
+    from gnnome_tpu_torch.models.model import init_model_params
+    from gnnome_tpu_torch.parallel.partition import edge_cut_fraction
+    from gnnome_tpu_torch.train import loop
+
+    cfg = Config()
+    m, tc = cfg.model, cfg.train
+    regime = (m.num_gnn_layers, m.hidden_features, m.nb_pos_enc, m.batch_norm, tc.remat,
+              tc.num_parts_train, tc.batch_size_train, tc.cluster_jitter, tc.compute_dtype)
+    if regime != (16, 256, 16, True, "layer", 500, 50, 100, "float32"):
+        raise AssertionError(f"the default Config changed: {regime}")
+    tc.cluster_validation = True  # num_parts_eval=500, batch_size_eval=50, cached
+    if not native_bridge.available():
+        raise AssertionError("the native partitioner is not available (phase 1 built it)")
+    train_fn, valid_fn = loop.make_cluster_fns(cfg)
+    t0 = time.perf_counter()
+    sample = bench_sample(torch, seed, device)
+    log(f"  local bench graph: {sample.graph.n_nodes} nodes, {sample.graph.n_edges} edges, "
+        f"labels positive {float(sample.y[: sample.graph.n_edges].mean()):.4f}, built in "
+        f"{time.perf_counter() - t0:.2f} s; pos_weight {POS_WEIGHT}, Adam lr {LR}; "
+        f"partitioner: native ({native_bridge.lib_path()})")
+    params = init_model_params(torch.Generator().manual_seed(seed), m, device)
+    opt = loop.make_optimizer(params, LR)
+    pos_weight = torch.tensor(POS_WEIGHT, device=device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_probe, valid_probe = SamplerProbe(train_fn), SamplerProbe(valid_fn)
+    losses, step_ms = [], []
+
+    def epoch(train_mode: bool):
+        name = "train_step" if train_mode else "eval_step"
+        with StepProbe(torch, loop, name) as steps:
+            t0 = time.perf_counter()
+            metrics = loop._epoch_pass([(0, sample)], params, opt, pos_weight, cfg, train_mode,
+                                       train_probe if train_mode else valid_probe)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        probe = train_probe if train_mode else valid_probe
+        k, parts, part_s = probe.drawn[-1] if probe.drawn else (tc.num_parts_eval, None, 0.0)
+        pieces, ms = probe.pieces[-1], steps.ms()
+        if not math.isfinite(metrics["loss"]):
+            raise AssertionError(f"loss {metrics['loss']} is not finite")
+        losses.append(metrics["loss"])
+        step_ms.extend(ms if train_mode else [])
+        what = "training epoch" if train_mode else "validation pass"
+        drawn = (f"drawn from [{tc.num_parts_train - tc.cluster_jitter}, "
+                 f"{tc.num_parts_train + tc.cluster_jitter})" if train_mode
+                 else "fixed, cached for later passes")
+        cut = "" if parts is None else (
+            f"k={k} ({drawn}), partition {part_s:.4f} s, edge cut "
+            f"{edge_cut_fraction(parts, sample.src, sample.dst):.4%}; ")
+        g = [p.graph for p in pieces]
+        log(f"  {what}: {cut}{len(pieces)} pieces; real nodes {min(x.n_nodes for x in g)}-"
+            f"{max(x.n_nodes for x in g)}, edges {min(x.n_edges for x in g)}-"
+            f"{max(x.n_edges for x in g)}, padded to {g[0].n_nodes_padded} / "
+            f"{g[0].n_edges_padded}; sampler host {probe.seconds[-1]:.4f} s; "
+            f"{'step' if train_mode else 'forward'} ms (CUDA events) median "
+            f"{sorted(ms)[len(ms) // 2]:.3f}, min {min(ms):.3f}, max {max(ms):.3f}, sum "
+            f"{sum(ms):.3f}; wall {wall:.4f} s; loss {metrics['loss']:.5f} "
+            f"acc {metrics['accuracy']:.4f}")
+        return steps.first
+
+    reset_launches()
+    piece_step = epoch(True)
+    profile_run(torch, lambda: epoch(True), "training epoch", iters=1)
+    epoch(False)
+    torch.cuda.synchronize()
+    total = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in one piece step: { {k: v for k, v in piece_step.items() if v} }")
+    if piece_step != expected_launches("batchnorm", "layer"):
+        raise AssertionError(f"piece step launch counts {piece_step}, expected "
+                             f"{expected_launches('batchnorm', 'layer')}")
+    log(f"  piece step ms over both epochs (CUDA events): median "
+        f"{sorted(step_ms)[len(step_ms) // 2]:.3f} of {len(step_ms)}; sampler host s per "
+        f"training epoch {[round(x, 4) for x in train_probe.seconds]}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; losses {[round(x, 5) for x in losses]}")
+    del params, opt, sample
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cluster_piece_step_batchnorm_remat_layer": piece_step,
+            "cluster_epochs_batchnorm": total}
+
+
+def phase_cluster_genome(torch, data: Path, seed: int, device="cuda") -> dict:
+    """ClusterGCN on the genome graph: the same pieces on the card and the
+    CPU, one piece's gradients card vs CPU, then ``train()`` under a
+    ClusterGCN config with a resume. Returns the piece step's launches."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
+    from gnnome_tpu_torch.train.cluster import make_cluster_sampler
+
+    kw = dict(num_parts=16, batch_size=4, nb_pos_enc=16, seed=seed, jitter=4)
+    pieces = {}
+    for dev in (device, "cpu"):
+        (_, s), = AssemblyGraphDataset(str(data), 16, device=dev)
+        pieces[dev] = make_cluster_sampler(**kw)(s)
+    got, ref = pieces[device], pieces["cpu"]
+    if len(got) != len(ref) or len(got) < 2:
+        raise AssertionError(f"{len(got)} pieces on the card, {len(ref)} on the CPU")
+    for p, q in zip(got, ref):
+        pairs = [(p.graph.src, q.graph.src), (p.graph.dst, q.graph.dst), (p.e_feat, q.e_feat),
+                 (p.pe, q.pe), (p.y, q.y)]
+        if p.graph.n_nodes_padded != q.graph.n_nodes_padded or not all(
+                torch.equal(a.cpu(), b) for a, b in pairs) or not all(
+                (getattr(p, k) == getattr(q, k)).all() for k in ("src", "dst", "read_length")):
+            raise AssertionError("a ClusterGCN piece differs between the card and the CPU")
+    log(f"  {len(got)} pieces (sampler {kw}), equal on the card and the CPU: nodes "
+        f"{[x.graph.n_nodes for x in got]}, edges {[x.graph.n_edges for x in got]}, padded "
+        f"to {got[0].graph.n_nodes_padded} / {got[0].graph.n_edges_padded}")
+    # the piece with the most negative edges (a piece of only positive
+    # edges would have pos_weight 0 and no gradient)
+    neg = [float((1 - q.y[: q.graph.n_edges]).sum()) for q in ref]
+    i = max(range(len(ref)), key=neg.__getitem__)
+    launches = grads_against_cpu(torch, {device: got[i], "cpu": ref[i]}, seed,
+                                 "batchnorm", f"piece {i} ({neg[i]:.0f} negative edges)",
+                                 device)
+    cfg = Config()
+    cfg.train.num_parts_train, cfg.train.batch_size_train = 16, 4
+    cfg.train.cluster_jitter = 4
+    train_with_resume(cfg, data, WORK / "train" / "cluster", "ClusterGCN train()", device)
+    return launches
+
+
+def phase_pipeline(torch, device="cuda") -> dict:
+    """The offline example through the pipeline's stages on the card;
+    returns the launch counts of the whole run."""
+    from gnnome_tpu_torch import example
+    from gnnome_tpu_torch.data import native_bridge
+    from gnnome_tpu_torch.data.builder import parse_fasta
+    from gnnome_tpu_torch.evaluation.assembly import calculate_n50
+
+    root = WORK / "example"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = example.synthetic_config(str(root))
+    log(f"  synthetic_example: {cfg.model.num_gnn_layers} layers, D="
+        f"{cfg.model.hidden_features}, {cfg.train.num_epochs} epochs, splits "
+        f"{cfg.split.train} / {cfg.split.valid} / {cfg.split.test}; simulator and builder: "
+        f"{'native' if native_bridge.available() else 'Python'}")
+    reset_launches()
+    t0 = time.perf_counter()
+    results = example.synthetic_example(str(root), cfg=cfg, device=device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    fasta = root / "data" / "experiments" / "test_example" / "assembly" / "0_assembly.fasta"
+    contigs = parse_fasta(str(fasta)) if fasta.exists() else []
+    lengths = [len(seq) for _, seq in contigs]
+    log(f"  synthetic_example: {time.perf_counter() - t0:.2f} s; {fasta.relative_to(WORK)}: "
+        f"{len(lengths)} contigs, N50 {calculate_n50(lengths) if lengths else 0}, total "
+        f"{sum(lengths)} bp; quick evaluation {results}")
+    if not lengths or not launches["gate_front"]:
+        raise AssertionError("synthetic_example wrote no contigs or ran no kernel")
     return launches
 
 
@@ -800,9 +1087,29 @@ def main() -> int:
     log("phase 1: build")
     cached = cuda_lib.library_path().exists()
     t0 = time.perf_counter()
-    cuda_lib.library()
-    log(f"  {cuda_lib.library_path().relative_to(ROOT)}: "
-        f"{time.perf_counter() - t0:.2f} s ({'cached' if cached else 'built now'})")
+    # the native host library (partitioner, builder, simulator) builds with
+    # the Makefile's g++ beside nvcc's builds; CXX=g++ on the command line,
+    # since a CXX in the environment overrides the Makefile's (one without
+    # OpenMP's libgomp fails to link it)
+    make = subprocess.Popen(["make", "-s", "-j3", "-C", str(ROOT / "native"), "CXX=g++"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        cuda_lib.library()
+        log(f"  {cuda_lib.library_path().relative_to(ROOT)}: "
+            f"{time.perf_counter() - t0:.2f} s ({'cached' if cached else 'built now'})")
+        make_out, _ = make.communicate(timeout=600)
+    finally:
+        if make.poll() is None:
+            make.kill()
+            make.wait()
+    from gnnome_tpu_torch.data import native_bridge
+
+    native_bridge._load.cache_clear()
+    if make.returncode != 0 or not native_bridge.available():
+        raise RuntimeError(f"make -C native failed (rc {make.returncode}) or the library "
+                           f"is not usable (GNNOME_FORCE_PYTHON set?):\n{make_out}")
+    log(f"  {Path(native_bridge.lib_path()).relative_to(ROOT)}: ready "
+        f"{time.perf_counter() - t0:.2f} s after the start (g++, beside nvcc)")
 
     log(f"phase 2: kernel parity at the main path's shapes (seed {args.seed})")
     graphs = {}
@@ -854,10 +1161,20 @@ def main() -> int:
     log("phase 6: gradients on the card against the CPU, and train() with a resume")
     genome = phase_gradients_and_loop(torch, data, args.seed)
 
+    log("phase 7: ClusterGCN training at full width under the default Config")
+    cluster = phase_cluster(torch, args.seed)
+
+    log("phase 8: ClusterGCN pieces and gradients, card against CPU; train() under it")
+    genome["cluster_piece_batchnorm"] = phase_cluster_genome(torch, data, args.seed)
+
+    log("phase 9: the pipeline: example.synthetic_example on the card")
+    pipeline_launches = phase_pipeline(torch)
+
     # the kernel table's launch counts: one full-scale step of the first
     # training path that runs the kernel; every path's count beside it
     paths = {**scoring, **{f"train_step_{v}_remat_{r}": c for (v, r), c in training.items()},
-             **{f"genome_step_{v}_remat_layer": c for v, c in genome.items()}}
+             **{f"genome_step_{v}_remat_layer": c for v, c in genome.items()},
+             **cluster, "synthetic_example": pipeline_launches}
     steps = [training[run] for run in TRAIN_RUNS]
     for row in kernels:
         name = row["name"]

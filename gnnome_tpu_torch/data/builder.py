@@ -7,9 +7,10 @@ is the in-repo equivalent: minimizer-based overlap detection, containment
 removal, transitive reduction, and emission of the same CSV/GFA contract
 our parser (and the reference's) consumes.
 
-The native C++ implementation the JAX package prefers at chromosome scale
-(``native/graph_builder.cpp``) is not bridged into this package yet: this
-Python version is the only builder here.
+A native C++ implementation with the same pipeline lives in
+``native/graph_builder.cpp`` (OpenMP-threaded, used for chromosome-scale
+inputs through ``data/native_bridge.py`` when built, as in the JAX
+package); this Python version is the executable spec and the fallback.
 
 Graph conventions (must match ``graph_parser.py:154-311``):
   * read ``i`` (GFA line ``i``) → nodes ``2i`` (as-is) and ``2i+1``
@@ -494,8 +495,8 @@ def build_overlap_graph(
 ) -> None:
     """End-to-end builder: reads FASTA → CSV/GFA on disk.
 
-    Python implementation (the native builder is not bridged into this
-    package yet).
+    Prefers the native C++ builder when available (chromosome scale);
+    falls back to this Python implementation.
 
     ``noisy=True`` enables the error-tolerant front end (the role of
     Raven's default mode on real HiFi reads, ``graph_dataset.py:118-122``):
@@ -505,6 +506,15 @@ def build_overlap_graph(
     Error-free simulated reads keep the exact legacy output with
     ``noisy=False`` (vote-density similarity, no trimming).
     """
+    from gnnome_tpu_torch.data import native_bridge
+
+    if native_bridge.available():
+        native_bridge.build_overlap_graph(
+            reads_path, csv_path, threads, identity if noisy else 0.0,
+            k, w, min_overlap, trim_min_cov if noisy else 0,
+        )
+        return
+
     records = parse_fasta(reads_path)
     headers = [h for h, _ in records]
     reads = [s for _, s in records]

@@ -165,10 +165,12 @@ class AssemblyGraphDataset:
     ``root`` must contain ``raw/`` (FASTA read sets). Processing runs the
     overlap-graph builder on each raw file not yet processed; loading
     yields :class:`GraphSample` objects sorted by index, on ``device``.
+    ``generate=True`` builds and caches the graphs and loads none of them
+    (``generate.py`` and the pipeline's generate stage).
     """
 
     def __init__(self, root: str, nb_pos_enc: Optional[int] = 16,
-                 specs: Optional[Dict] = None, device="cuda"):
+                 specs: Optional[Dict] = None, generate: bool = False, device="cuda"):
         self.root = os.path.abspath(root)
         self.nb_pos_enc = nb_pos_enc
         self.specs = specs or {}
@@ -182,6 +184,8 @@ class AssemblyGraphDataset:
             self.process()
 
         self.graph_list: List[Tuple[int, GraphSample]] = []
+        if generate:
+            return
         for file in sorted(os.listdir(self.save_dir)):
             if not file.endswith(".npz"):
                 continue
@@ -197,7 +201,8 @@ class AssemblyGraphDataset:
         return n_processed >= len(os.listdir(self.raw_dir))
 
     def __len__(self) -> int:
-        return len(self.graph_list)
+        """Processed graphs on disk (loaded or not, as in the JAX package)."""
+        return len([f for f in os.listdir(self.save_dir) if f.endswith(".npz")])
 
     def __getitem__(self, i: int) -> Tuple[int, GraphSample]:
         return self.graph_list[i]
@@ -231,3 +236,24 @@ def get_info(idx: int, data_path: str, kind: str):
     """Load one info pickle (``utils.get_info``, ``utils.py:163-166``)."""
     with open(os.path.join(data_path, "info", f"{idx}_{kind}.pkl"), "rb") as f:
         return pickle.load(f)
+
+
+def load_graph_data(num_graphs: int, data_path: str, use_reads: bool = False):
+    """Batch-load decode-time info dicts (``utils.load_graph_data``,
+    ``utils.py:182-195``)."""
+    info_all = {"preds": [], "succs": [], "reads": [], "edges": []}
+    for idx in range(num_graphs):
+        info_all["preds"].append(get_info(idx, data_path, "pred"))
+        info_all["succs"].append(get_info(idx, data_path, "succ"))
+        if use_reads:
+            info_all["reads"].append(get_info(idx, data_path, "reads"))
+        info_all["edges"].append(get_info(idx, data_path, "edges"))
+    return info_all
+
+
+def print_graph_info(idx: int, sample: GraphSample, log_fn=print) -> None:
+    """Basic graph info (``utils.print_graph_info``, ``utils.py:198-204``)."""
+    log_fn("\n---- GRAPH INFO ----")
+    log_fn(f"Graph index: {idx}")
+    log_fn(f"Number of nodes: {sample.graph.n_nodes}")
+    log_fn(f"Number of edges: {sample.graph.n_edges}")

@@ -7,9 +7,10 @@ coverage, lengths drawn from an empirical per-chromosome distribution file
 rewrites headers to ``"<id> strand=±, start=<s>, end=<e>"``
 (``pipeline.py:46-61`` change_description).
 
-This module emits those final headers directly. The native C++ simulator
-in ``native/`` is not bridged into this package yet; this Python version
-is the only simulator here.
+This module emits those final headers directly. A native C++ simulator with
+identical semantics lives in ``native/`` (used for full chromosomes through
+``data/native_bridge.py`` when built); this Python version is the spec and
+the fallback.
 """
 from __future__ import annotations
 
@@ -48,7 +49,11 @@ def load_length_distribution(path: str) -> np.ndarray:
 
 #: vendored per-chromosome HiFi read-length distributions (gzipped copies of
 #: the reference's ``data/references/lengths/chr*.txt`` data files — one
-#: observed read length per line; e.g. chr19 has 110,835 samples)
+#: observed read length per line; e.g. chr19 has 110,835 samples). The port
+#: carries chr19 and chr21, the chromosomes every simulated split of the
+#: entry points uses (``config.SplitConfig``, ``example.py``,
+#: ``reproduce.py``); another chromosome's reads take the clipped-normal
+#: lengths unless ``<lengths_dir>/<chr>.txt`` exists.
 VENDORED_LENGTHS_DIR = os.path.join(os.path.dirname(__file__), "lengths")
 
 
@@ -161,9 +166,18 @@ def simulate_to_file(
     """CLI-style entry mirroring ``seqrequester simulate -genome ...
     -coverage ... -distribution ...`` (``pipeline.py:167-168``).
 
+    Prefers the native C++ simulator when built; falls back to Python.
     Returns the number of reads written. ``error_rate`` injects HiFi-like
     sequencing errors (see :func:`inject_errors`).
     """
+    from gnnome_tpu_torch.data import native_bridge
+
+    if native_bridge.available():
+        return native_bridge.simulate_reads(
+            genome_path, out_path, coverage, distribution_path or "", seed,
+            error_rate,
+        )
+
     genome = read_fasta_sequence(genome_path)
     if distribution_path and os.path.exists(distribution_path):
         lengths = load_length_distribution(distribution_path)

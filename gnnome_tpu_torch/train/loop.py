@@ -1,4 +1,4 @@
-"""Training loop: full-graph step, plateau LR, checkpoints, metrics.
+"""Training loop: the step, plateau LR, checkpoints, metrics.
 
 Counterpart of ``gnnome_tpu/train/loop.py`` (reference ``train.train``,
 ``train.py:115-533``):
@@ -7,14 +7,17 @@ Counterpart of ``gnnome_tpu/train/loop.py`` (reference ``train.train``,
     (every sparse op's gradient on the backward kernels) and Adam
     (``train.py:209``; ``torch.optim.Adam`` with optax's defaults:
     betas (0.9, 0.999), eps 1e-8, no eps_root);
+  * both regimes of the JAX package: full-graph steps, and the reference's
+    METIS/ClusterGCN minibatches (``train.py:282-343``; ``train/cluster.py``)
+    whenever ``num_parts_train > 1`` and ``batch_size_train > 1``, as in the
+    default :class:`Config`; ``cluster_validation`` validates on pieces too;
   * ``ReduceLROnPlateau`` with the JAX package's (torch-compatible) rule;
   * pos_weight = 1 / the dataset's mean pos:neg ratio (``train.py:181``);
   * a checkpoint every epoch and best-on-valid-loss weights
     (``train.py:525-528``), in the JAX package's format, with resume.
 
-Only the full-graph regime is ported: ClusterGCN minibatching
-(``train/cluster.py``) is ROADMAP A 9, and :func:`train` refuses a config
-that asks for it rather than training on full graphs instead.
+bf16 compute is not ported: :func:`train` refuses ``compute_dtype`` other
+than float32 rather than train in another precision.
 """
 from __future__ import annotations
 
@@ -140,40 +143,68 @@ def pos_to_neg_ratio(samples: List[Tuple[int, GraphSample]]) -> float:
     return float(np.mean(ratios)) if ratios else 1.0
 
 
-def _epoch_pass(samples, params, opt, pos_weight, cfg: Config,
-                train_mode: bool) -> Dict[str, float]:
-    """One pass over the graphs (full-graph); returns the mean metrics."""
+def _epoch_pass(samples, params, opt, pos_weight, cfg: Config, train_mode: bool,
+                cluster_fn=None) -> Dict[str, float]:
+    """One pass over the graphs; returns the mean metrics. ``cluster_fn``
+    (``train/cluster.py``) cuts each graph into pieces, one step each: the
+    loss and the metrics are averaged over a graph's pieces, then over the
+    graphs, as in the JAX package."""
     losses, per_graph = [], []
     for _, sample in samples:
-        wide, remat, group = resolve_perf(cfg.train, sample.graph)
-        if train_mode:
-            loss, counts = train_step(
-                params, opt, sample.graph, sample.e_feat, sample.pe, sample.y,
-                pos_weight, batch_norm=cfg.model.batch_norm, remat=remat,
-                remat_group=group, wide_gathers=wide)
-        else:
-            loss, counts, _ = eval_step(params, sample.graph, sample.e_feat,
-                                        sample.pe, sample.y, pos_weight,
-                                        batch_norm=cfg.model.batch_norm,
-                                        wide_gathers=wide)
-        # one device fetch per step: loss and the four counts packed
-        packed = torch.stack([loss, *(counts[k] for k in _COUNT_KEYS)]).cpu().numpy()
-        losses.append(float(packed[0]))
-        per_graph.append(classification_metrics(dict(zip(_COUNT_KEYS, packed[1:]))))
+        pieces = cluster_fn(sample) if cluster_fn is not None else [sample]
+        g_losses, g_metrics = [], []
+        for piece in pieces:
+            wide, remat, group = resolve_perf(cfg.train, piece.graph)
+            if train_mode:
+                loss, counts = train_step(
+                    params, opt, piece.graph, piece.e_feat, piece.pe, piece.y,
+                    pos_weight, batch_norm=cfg.model.batch_norm, remat=remat,
+                    remat_group=group, wide_gathers=wide)
+            else:
+                loss, counts, _ = eval_step(params, piece.graph, piece.e_feat,
+                                            piece.pe, piece.y, pos_weight,
+                                            batch_norm=cfg.model.batch_norm,
+                                            wide_gathers=wide)
+            # one device fetch per step: loss and the four counts packed
+            packed = torch.stack([loss, *(counts[k] for k in _COUNT_KEYS)]).cpu().numpy()
+            g_losses.append(float(packed[0]))
+            g_metrics.append(classification_metrics(dict(zip(_COUNT_KEYS, packed[1:]))))
+        losses.append(float(np.mean(g_losses)))
+        per_graph.append({k: float(np.mean([m[k] for m in g_metrics]))
+                          for k in g_metrics[0]})
     mean = {k: float(np.mean([m[k] for m in per_graph])) for k in per_graph[0]} \
         if per_graph else {}
     mean["loss"] = float(np.mean(losses)) if losses else 0.0
     return mean
 
 
+def make_cluster_fns(cfg: Config):
+    """``(train_fn, valid_fn)``: the ClusterGCN samplers :func:`train` uses,
+    each ``None`` where its regime is full-graph (JAX
+    ``gnnome_tpu/train/loop.py:294-318``)."""
+    tc = cfg.train
+    if not (tc.batch_size_train > 1 and tc.num_parts_train > 1):
+        return None, None
+    from gnnome_tpu_torch.train.cluster import make_cluster_sampler
+
+    train_fn = make_cluster_sampler(num_parts=tc.num_parts_train,
+                                    batch_size=tc.batch_size_train,
+                                    nb_pos_enc=cfg.model.nb_pos_enc, seed=tc.seed,
+                                    jitter=tc.cluster_jitter)
+    valid_fn = None
+    if tc.cluster_validation and tc.batch_size_eval > 1 and tc.num_parts_eval > 1:
+        # the reference's eval regime: a fixed part count, re-shuffled per
+        # epoch (train.py:436-439)
+        valid_fn = make_cluster_sampler(num_parts=tc.num_parts_eval,
+                                        batch_size=tc.batch_size_eval,
+                                        nb_pos_enc=cfg.model.nb_pos_enc,
+                                        seed=tc.seed + 1, jitter=0, recluster=False)
+    return train_fn, valid_fn
+
+
 def _check_supported(cfg: Config) -> None:
     """Refuse what the port has not got, rather than train something else."""
     tc = cfg.train
-    if tc.batch_size_train > 1 and tc.num_parts_train > 1:
-        raise NotImplementedError(
-            f"ClusterGCN minibatch training (num_parts_train={tc.num_parts_train}, "
-            f"batch_size_train={tc.batch_size_train}) is not ported yet (ROADMAP A 9); "
-            "set num_parts_train=1 for full-graph training")
     if tc.compute_dtype != "float32":
         raise NotImplementedError(f"compute_dtype={tc.compute_dtype!r}: the port "
                                   "trains in float32 only (bf16 is a later slice)")
@@ -182,8 +213,8 @@ def _check_supported(cfg: Config) -> None:
 def train(train_path: str, valid_path: Optional[str] = None, out: str = "model",
           overfit: bool = False, cfg: Optional[Config] = None, log_fn=print,
           device="cuda") -> Dict[str, Any]:
-    """Full training run (full-graph). Returns a summary with the paths and
-    the loss histories."""
+    """Full training run, full-graph or ClusterGCN as ``cfg.train`` says.
+    Returns a summary with the paths and the loss histories."""
     cfg = cfg or Config()
     _check_supported(cfg)
     tc = cfg.train
@@ -226,11 +257,13 @@ def train(train_path: str, valid_path: Optional[str] = None, out: str = "model",
 
     metrics_logger = MetricsLogger(out_dir=os.path.join(tc.checkpoint_dir, "runs"),
                                    run_name=run_name)
+    cluster_fn, valid_cluster_fn = make_cluster_fns(cfg)
     t0 = time.time()
     try:
         _run_epochs(list(ds_train), ds_valid, params, opt, pos_weight, cfg, lr,
                     scheduler, metrics_logger, ckpt_path, best_path, start_epoch,
-                    loss_train_hist, loss_valid_hist, log_fn, t0)
+                    loss_train_hist, loss_valid_hist, log_fn, t0, cluster_fn,
+                    valid_cluster_fn)
     except KeyboardInterrupt:
         # clean exit, state already checkpointed each epoch (train.py:531-533)
         log_fn("KeyboardInterrupt — exiting (checkpoint is current)")
@@ -247,12 +280,13 @@ def train(train_path: str, valid_path: Optional[str] = None, out: str = "model",
 
 def _run_epochs(graphs, ds_valid, params, opt, pos_weight, cfg: Config, lr: float,
                 scheduler, metrics_logger, ckpt_path, best_path, start_epoch,
-                loss_train_hist, loss_valid_hist, log_fn, t0):
+                loss_train_hist, loss_valid_hist, log_fn, t0, cluster_fn,
+                valid_cluster_fn):
     tc = cfg.train
     for epoch in range(start_epoch, tc.num_epochs):
         random.shuffle(graphs)
         set_lr(opt, lr)
-        train_m = _epoch_pass(graphs, params, opt, pos_weight, cfg, True)
+        train_m = _epoch_pass(graphs, params, opt, pos_weight, cfg, True, cluster_fn)
         loss_train_hist.append(train_m["loss"])
         log_fn(
             f"[epoch {epoch}] train loss {train_m['loss']:.4f} "
@@ -260,7 +294,8 @@ def _run_epochs(graphs, ds_valid, params, opt, pos_weight, cfg: Config, lr: floa
             f"fp_rate {train_m['fp_rate']:.4f} fn_rate {train_m['fn_rate']:.4f} "
             f"lr {lr:.6f} ({time.time() - t0:.1f}s)")
 
-        valid_m = _epoch_pass(list(ds_valid), params, opt, pos_weight, cfg, False)
+        valid_m = _epoch_pass(list(ds_valid), params, opt, pos_weight, cfg, False,
+                              valid_cluster_fn)
         loss_valid_hist.append(valid_m["loss"])
         log_fn(f"[epoch {epoch}] valid loss {valid_m['loss']:.4f} "
                f"acc {valid_m['accuracy']:.4f} f1 {valid_m['f1']:.4f}")

@@ -506,11 +506,29 @@ def test_train_loop_overfits_and_resumes(genome_root, tmp_path):
                                        "overfit.metrics.jsonl"))
 
 
-def test_train_refuses_what_is_not_ported(genome_root, tmp_path):
+def test_train_refuses_what_is_not_ported(genome_root, tmp_path, monkeypatch):
+    """bf16 is refused; the default ClusterGCN regime (500 parts, batches of
+    50 clusters, jitter 100) is accepted and trains on pieces."""
+    from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
+
     cfg = _small_cfg(tmp_path)
-    cfg.train.num_parts_train = 500  # the default ClusterGCN regime
-    with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
-        loop.train(genome_root, None, overfit=True, cfg=cfg, device="cpu")
+    cfg.train.num_epochs = 1
+    for k in ("num_parts_train", "batch_size_train", "cluster_jitter"):
+        setattr(cfg.train, k, getattr(TrainConfig(), k))
+    piece_nodes = []
+    step = loop.train_step
+
+    def counted(*args, **kw):
+        piece_nodes.append(args[2].n_nodes)
+        return step(*args, **kw)
+
+    monkeypatch.setattr(loop, "train_step", counted)
+    out = loop.train(genome_root, None, overfit=True, cfg=cfg, log_fn=lambda m: None,
+                     device="cpu")
+    assert len(out["loss_train"]) == 1 and np.isfinite(out["loss_train"]).all()
+    (_, s), = AssemblyGraphDataset(genome_root, nb_pos_enc=8, device="cpu")
+    # several pieces, which cover the graph once
+    assert len(piece_nodes) > 1 and sum(piece_nodes) == s.graph.n_nodes
     cfg = _small_cfg(tmp_path, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="float32"):
         loop.train(genome_root, None, overfit=True, cfg=cfg, device="cpu")
