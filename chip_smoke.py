@@ -21,6 +21,13 @@ stopped); any failure raises and exits non-zero:
              the cross-locus share of real graphs. The row gather is held at
              the score head's 64, the LayerNorm gathers' D = 256 and the
              wide-gather width 2D = 512; the segment sums at D and 2D.
+             Every entry runs again on the shape of the ClusterGCN piece
+             with the most padding in phase 7 (14,336 / 91,136 rows, 26,638
+             of them padded edges), and the seven entries that walk fixed
+             tiles of edges (rows 8, 9, 13 and the backwards of 10 and 11)
+             on the local graph with a hub row of 10,000 in- and 10,000
+             out-edges; each walk's outputs (d_affine among them) alike bit
+             for bit in two calls.
 3. scoring — the serving path: ``score_graph`` of the 16-layer, D=256
              GatedGCN on both graphs, with the shipped BatchNorm weights
              (``pretrained/model_hardfull40.npz``) and with seeded random
@@ -59,8 +66,10 @@ stopped); any failure raises and exits non-zero:
              partitioner; per epoch the drawn part count, edge cut, pieces
              and their sizes, sampler host seconds, piece-step ms (CUDA
              events), wall seconds; the second epoch under torch.profiler
-             (idle share); launches of one piece step against the stated
-             counts; peak memory.
+             (idle share, device ms, launches and ms per launch of every
+             kernel entry, the slowest piece step over the median);
+             launches of one piece step against the stated counts; peak
+             memory.
 8. ClusterGCN on the genome — the sampler's pieces equal on the card and
              the CPU, one piece's gradients card vs CPU, ``train()`` under a
              ClusterGCN config with a resume.
@@ -134,18 +143,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2, min_ms: float = 20.0) -> float:
+    """Mean ms of ``fn`` over ``iters`` calls after ``warmup``, with CUDA
+    events; a run shorter than ``min_ms`` (a small kernel, whose first
+    launches after host work find the clocks low) is warmed up and timed
+    again over enough calls to last ``min_ms``."""
+    def run(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    run(warmup)
+    ms = run(iters)
+    if ms * iters < min_ms:
+        n = int(min_ms / max(ms, 1e-3)) + 1
+        run(n)
+        ms = run(n)
+    return ms
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
@@ -176,27 +195,24 @@ def card_name_and_power() -> str:
 def phase_parity(torch, graph, seed: int) -> list[dict]:
     """Each kernel entry against its plain version at the main paths' shapes."""
     from gnnome_tpu_torch.ops.gate_epilog import (
-        EPILOG_BWD, EPILOG_BWD_PREGATHERED, GATE_SIGMA_AGGREGATE, GATE_SIGMA_GATHER,
-        epilog_bwd, epilog_bwd_plain, gate_sigma_gather, gate_sigma_gather_plain)
+        GATE_SIGMA_AGGREGATE, GATE_SIGMA_GATHER, gate_sigma_gather, gate_sigma_gather_plain)
     from gnnome_tpu_torch.ops.gate_front import (
         GATE_FRONT, GATE_FRONT_BWD, gate_front, gate_front_bwd, gate_front_bwd_plain,
         gate_front_plain)
     from gnnome_tpu_torch.ops.reverse_sum import (
-        OPP_BWD, REV_BWD, SIGMA_OPPOSITE, SIGMA_REVERSE_SUM, opp_bwd, opp_bwd_plain,
-        rev_bwd, rev_bwd_plain, sigma_opposite, sigma_opposite_plain, sigma_reverse_sum,
-        sigma_reverse_sum_plain)
+        SIGMA_OPPOSITE, SIGMA_REVERSE_SUM, sigma_opposite, sigma_opposite_plain,
+        sigma_reverse_sum, sigma_reverse_sum_plain)
     from gnnome_tpu_torch.ops.segment_sum import (
         SEGMENT_SUM_BY_DST, SEGMENT_SUM_BY_SRC, segment_sum, segment_sum_plain)
     from gnnome_tpu_torch.ops.sigma_aggregate import (
-        SIGMA_AGGREGATE, SIGMA_AGGREGATE_BWD, SIGMA_AGGREGATE_BWD_BY_SRC,
-        SIGMA_AGGREGATE_BWD_GATHER, SIGMA_AGGREGATE_BY_SRC, SIGMA_AGGREGATE_GATHER,
-        sigma_aggregate, sigma_aggregate_bwd, sigma_aggregate_bwd_plain,
+        SIGMA_AGGREGATE, SIGMA_AGGREGATE_BY_SRC, SIGMA_AGGREGATE_GATHER, sigma_aggregate,
         sigma_aggregate_plain)
     from gnnome_tpu_torch.ops.take import TAKE_ROWS, take_rows, take_rows_plain
 
     dev = graph.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, e, d, d_score = graph.n_nodes_padded, graph.n_edges_padded, 256, 64
+    er = graph.n_edges  # real edges: the sums read no padded row
     d_wide = 2 * d  # the paired rows of wide_gathers
 
     def randn(*shape, scale=1.0):
@@ -307,7 +323,7 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
                       KERNEL_TOL, KERNEL_TOL)
     record(SIGMA_REVERSE_SUM, err, KERNEL_TOL, lambda: sigma_reverse_sum(*args),
            lambda: sigma_reverse_sum_plain(*args), None,
-           (e * d + u_dst * d + 2 * n * d) * 4 + (2 * e + n + 1) * 4,
+           (er * d + u_dst * d + 2 * n * d) * 4 + (2 * er + n + 1) * 4,
            5 * e * d)
     del got, args
 
@@ -318,18 +334,18 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
                       KERNEL_TOL, KERNEL_TOL)
     record(SIGMA_OPPOSITE, err, KERNEL_TOL, lambda: sigma_opposite(*args),
            lambda: sigma_opposite_plain(*args), None,
-           (e * d + u_dst * d + 2 * n * d) * 4 + (2 * e + n + 1) * 4, 5 * e * d)
+           (er * d + u_dst * d + 2 * n * d) * 4 + (2 * er + n + 1) * 4, 5 * e * d)
     del got, args
 
     # 10: σ-aggregate: by_dst over the node table at src (LayerNorm h_fwd),
     # by_dst over pregathered rows (LayerNorm + wide h_fwd), by_src over
     # pregathered rows (wide h_bwd from a3h[dst])
     forms = ((SIGMA_AGGREGATE_GATHER, graph.by_dst, values, graph.src,
-              (e * d + u_src * d + 2 * n * d) * 4 + (n + 1 + e) * 4),
+              (er * d + u_src * d + 2 * n * d) * 4 + (n + 1 + er) * 4),
              (SIGMA_AGGREGATE, graph.by_dst, vals, None,
-              (2 * e * d + 2 * n * d) * 4 + (n + 1) * 4),
+              (2 * er * d + 2 * n * d) * 4 + (n + 1) * 4),
              (SIGMA_AGGREGATE_BY_SRC, graph.by_src, vals, None,
-              (2 * e * d + 2 * n * d) * 4 + (n + 1 + e) * 4))
+              (2 * er * d + 2 * n * d) * 4 + (n + 1 + er) * 4))
     for kernel, csr, v, ids, n_bytes in forms:
         args = (e_new, v, csr, ids)
         err = check_close(kernel.name, torch, sigma_aggregate(*args),
@@ -339,28 +355,26 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
     del args
 
     # the backward path (E x D cotangents at the same shapes)
-    if graph.n_edges != e:
-        raise AssertionError("the bench graph is unpadded: every key is a node id")
     # 5, 6: segment sums, the transpose reductions (library: index_add_,
     # float atomics, as a yardstick only), at D and at the wide width 2D
     for width in (d, d_wide):
         data = randn(e, width)
         for kernel, csr in ((SEGMENT_SUM_BY_DST, graph.by_dst),
                             (SEGMENT_SUM_BY_SRC, graph.by_src)):
-            key = csr.key.long()
+            key, real = csr.key[:er].long(), data[:er]  # padded edges are last
             err = check_close(kernel.name, torch, segment_sum(data, csr),
                               segment_sum_plain(data, csr), KERNEL_TOL, KERNEL_TOL)
             m = (kernel, err, KERNEL_TOL, lambda: segment_sum(data, csr),
                  lambda: segment_sum_plain(data, csr),
-                 lambda: torch.zeros((n, width), device=dev).index_add_(0, key, data),
-                 (e * width + n * width) * 4 + (n + 1) * 4 + (0 if csr.identity else e * 4),
+                 lambda: torch.zeros((n, width), device=dev).index_add_(0, key, real),
+                 (er * width + n * width) * 4 + (n + 1) * 4 + (0 if csr.identity else er * 4),
                  e * width)
             if width == d:
                 record(*m)
             else:
                 row = next(r for r in rows_out if r["name"] == kernel.name)
                 row["at_2d"] = measure(*m, what=f" [E, {width}]")
-        del key
+        del key, real
     data = randn(e, d)
 
     # 7: gate front backward (d_total and d_bias3; d_bias3 compared as a mean)
@@ -371,50 +385,140 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
                           KERNEL_TOL, KERNEL_TOL))
     record(GATE_FRONT_BWD, err, KERNEL_TOL, lambda: gate_front_bwd(*args),
            lambda: gate_front_bwd_plain(*args), None, (3 * e * d + 3 * d) * 4, 5 * e * d)
-    del got, ref, args
-
-    # 8: gate epilog backward, and 11's backward over the pregathered rows
-    # (d_affine compared as a mean)
-    g_sums = randn(n, 2 * d)
-    gate_raw = randn(e, d)
-    for kernel, v, src, n_bytes in (
-            (EPILOG_BWD, values, graph.src,
-             (6 * e * d + u_dst * 2 * d + u_src * d + 4 * d) * 4 + (n + 1 + e) * 4),
-            (EPILOG_BWD_PREGATHERED, vals, None,
-             (7 * e * d + u_dst * 2 * d + 4 * d) * 4 + (n + 1) * 4)):
-        args = (gate_raw, e_new, data, g_sums, v, affine, graph.by_dst, src)
-        got, ref = epilog_bwd(*args), epilog_bwd_plain(*args)
-        err = max(close_all(kernel.name, got[:3], ref[:3]),
-                  check_close(f"{kernel.name}.d_affine/E", torch, got[3] / e, ref[3] / e,
-                              KERNEL_TOL, KERNEL_TOL))
-        del got, ref
-        record(kernel, err, KERNEL_TOL, lambda: epilog_bwd(*args),
-               lambda: epilog_bwd_plain(*args), None, n_bytes, 18 * e * d)
-    del args, data, gate_raw
-
-    # 9: reverse aggregation backward; 13: the same in src-sorted order
-    for kernel, fn, plain, args in (
-            (REV_BWD, rev_bwd, rev_bwd_plain, (e_new, g_sums, values, graph.by_src, graph.dst)),
-            (OPP_BWD, opp_bwd, opp_bwd_plain, (e_new, g_sums, values, graph.by_src))):
-        err = close_all(kernel.name, fn(*args), plain(*args))
-        record(kernel, err, KERNEL_TOL, lambda: fn(*args), lambda: plain(*args), None,
-               (3 * e * d + u_src * 2 * d + u_dst * d) * 4 + (n + 1 + 2 * e) * 4,
-               12 * e * d)
-
-    # 10's backward, in the three forms (g_sums keyed on the walk's CSR)
-    for kernel, csr, v, ids, n_bytes in (
-            (SIGMA_AGGREGATE_BWD_GATHER, graph.by_dst, values, graph.src,
-             (3 * e * d + u_dst * 2 * d + u_src * d) * 4 + (n + 1 + e) * 4),
-            (SIGMA_AGGREGATE_BWD, graph.by_dst, vals, None,
-             (4 * e * d + u_dst * 2 * d) * 4 + (n + 1) * 4),
-            (SIGMA_AGGREGATE_BWD_BY_SRC, graph.by_src, vals, None,
-             (4 * e * d + u_src * 2 * d) * 4 + (n + 1 + e) * 4)):
-        args = (e_new, g_sums, v, csr, ids)
-        err = close_all(kernel.name, sigma_aggregate_bwd(*args),
-                        sigma_aggregate_bwd_plain(*args))
-        record(kernel, err, KERNEL_TOL, lambda: sigma_aggregate_bwd(*args),
-               lambda: sigma_aggregate_bwd_plain(*args), None, n_bytes, 12 * e * d)
+    del got, ref, args, data, e_new, values, vals, affine
+    # 8, 9, 10's and 11's backwards and 13: the edge-balanced walks
+    for case in walk_cases(torch, graph, gen):
+        err = check_walk(torch, case)
+        record(case[0], err, KERNEL_TOL, *case[1:3], None, *case[3:5])
     return rows_out
+
+
+def walk_cases(torch, graph, gen) -> list:
+    """``(kernel, fn, plain, n_bytes, n_ops)`` of each entry that walks
+    fixed tiles of edge positions (csrc/epilog_bwd.cu, csrc/sigma_rows.cuh), on
+    random inputs of ``graph``. The bytes count what these inputs need: every
+    row's [E, D] inputs and outputs, but on a padded edge neither its value
+    row nor its e_new row (its g_sums row is zero, so d_enew is g_enew and
+    d_vals zero), nor its src id; the distinct table rows the real edges
+    reference; each other id array once."""
+    from gnnome_tpu_torch.ops.gate_epilog import (
+        EPILOG_BWD, EPILOG_BWD_PREGATHERED, epilog_bwd, epilog_bwd_plain)
+    from gnnome_tpu_torch.ops.reverse_sum import (
+        OPP_BWD, REV_BWD, opp_bwd, opp_bwd_plain, rev_bwd, rev_bwd_plain)
+    from gnnome_tpu_torch.ops.sigma_aggregate import (
+        SIGMA_AGGREGATE_BWD, SIGMA_AGGREGATE_BWD_BY_SRC, SIGMA_AGGREGATE_BWD_GATHER,
+        sigma_aggregate_bwd, sigma_aggregate_bwd_plain)
+
+    dev = graph.device
+    n, e, er, d = graph.n_nodes_padded, graph.n_edges_padded, graph.n_edges, 256
+    u_src = int(torch.unique(graph.src[:er]).numel())
+    u_dst = int(torch.unique(graph.dst[:er]).numel())
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    e_new, g_sums, values, vals = randn(e, d), randn(n, 2 * d), randn(n, d), randn(e, d)
+    affine = torch.stack([torch.rand(d, generator=gen, device=dev) + 0.5, randn(d)])
+    gate_raw, g_enew = randn(e, d), randn(e, d)
+    cases = []
+    for kernel, v, src, table_bytes, ids in (
+            (EPILOG_BWD, values, graph.src, u_src * d, e + er),
+            (EPILOG_BWD_PREGATHERED, vals, None, er * d, e)):
+        args = (gate_raw, e_new, g_enew, g_sums, v, affine, graph.by_dst, src)
+        # gate_raw and g_enew read and three outputs written on every row,
+        # e_new read on the real rows
+        cases.append((kernel, lambda args=args: epilog_bwd(*args),
+                      lambda args=args: epilog_bwd_plain(*args),
+                      (5 * e * d + er * d + u_dst * 2 * d + table_bytes + 4 * d + ids) * 4,
+                      18 * e * d))
+    # per edge: e_new's row on real edges, two [E, D] outputs, the walked
+    # CSR's g_sums rows and segment_ids (and order), the value rows or table
+    for kernel, fn, plain, args, g_rows, table_bytes, ids in (
+            (REV_BWD, rev_bwd, rev_bwd_plain,
+             (e_new, g_sums, values, graph.by_src, graph.dst), u_src, u_dst * d, 2 * e + er),
+            (OPP_BWD, opp_bwd, opp_bwd_plain, (e_new, g_sums, values, graph.by_src),
+             u_src, u_dst * d, 2 * e + er),
+            (SIGMA_AGGREGATE_BWD_GATHER, sigma_aggregate_bwd, sigma_aggregate_bwd_plain,
+             (e_new, g_sums, values, graph.by_dst, graph.src), u_dst, u_src * d, e + er),
+            (SIGMA_AGGREGATE_BWD, sigma_aggregate_bwd, sigma_aggregate_bwd_plain,
+             (e_new, g_sums, vals, graph.by_dst, None), u_dst, er * d, e),
+            (SIGMA_AGGREGATE_BWD_BY_SRC, sigma_aggregate_bwd, sigma_aggregate_bwd_plain,
+             (e_new, g_sums, vals, graph.by_src, None), u_src, er * d, 2 * e)):
+        cases.append((kernel, lambda fn=fn, args=args: fn(*args),
+                      lambda plain=plain, args=args: plain(*args),
+                      (er * d + 2 * e * d + g_rows * 2 * d + table_bytes + ids) * 4,
+                      12 * e * d))
+    return cases
+
+
+def check_walk(torch, case) -> float:
+    """A walk entry against its plain version (d_affine, a sum over every
+    row, as a mean), and a second call alike bit for bit; the max error."""
+    kernel, fn, plain = case[:3]
+    got, ref = fn(), plain()
+    rows = got[0].shape[0]
+    err = max(check_close(f"{kernel.name}.{i}", torch, a, b, KERNEL_TOL, KERNEL_TOL)
+              for i, (a, b) in enumerate(zip(got[:3], ref[:3])))
+    if len(got) == 4:
+        err = max(err, check_close(f"{kernel.name}.d_affine/E", torch, got[3] / rows,
+                                   ref[3] / rows, KERNEL_TOL, KERNEL_TOL))
+    if not all(torch.equal(a, b) for a, b in zip(got, fn())):
+        raise AssertionError(f"{kernel.name}: a second call gave other values")
+    return err
+
+
+def piece_graph(seed: int, device="cuda"):
+    """The shape of the ClusterGCN piece with the most padding in phase 7
+    (its second epoch at seed 0: 10,046 real nodes and 64,498 real edges in
+    a bucket of 14,336 / 91,136, 26,638 padded edges): the local bench
+    graph's first 64,498 edges among its first 10,046 nodes, padded to that
+    bucket."""
+    import numpy as np
+
+    from gnnome_tpu_torch.core.graph import build_graph
+    from gnnome_tpu_torch.data.synthetic import bench_edges
+
+    n_real, e_real, n_pad, e_pad = 10_046, 64_498, 14_336, 91_136
+    src, dst = bench_edges(N_NODES, N_EDGES, seed)
+    inside = np.nonzero((src < n_real) & (dst < n_real))[0][:e_real]
+    if len(inside) != e_real:
+        raise AssertionError(f"only {len(inside)} edges among the first {n_real} nodes")
+    return build_graph(src[inside], dst[inside], n_real, node_pad_multiple=n_pad,
+                       edge_pad_multiple=e_pad, device=device)
+
+
+HUB_EDGES = 10_000  # in-edges and out-edges of the hub graph's hub row
+
+
+def hub_graph(seed: int, device="cuda"):
+    """The local bench graph with a hub: HUB_EDGES of its skip edges
+    re-pointed into node N/2 and HUB_EDGES others out of it."""
+    from gnnome_tpu_torch.core.graph import build_graph
+    from gnnome_tpu_torch.data.synthetic import bench_edges
+
+    src, dst = bench_edges(N_NODES, N_EDGES, seed)
+    hub, skip = N_NODES // 2, N_NODES  # the chain's ~N edges come first
+    dst[skip: skip + HUB_EDGES] = hub
+    src[skip + HUB_EDGES: skip + 2 * HUB_EDGES] = hub
+    keep = src != dst
+    return build_graph(src[keep], dst[keep], N_NODES, device=device)
+
+
+def phase_walks(torch, graph, seed: int, label: str) -> dict:
+    """The walk entries on one more graph shape: checked as in phase 2,
+    then kernel, plain and bound times; ``{name: measurements}``."""
+    gen = torch.Generator(device=graph.device).manual_seed(seed)
+    out = {}
+    for kernel, fn, plain, n_bytes, n_ops in walk_cases(torch, graph, gen):
+        err = check_walk(torch, (kernel, fn, plain))
+        ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        log(f"  {kernel.name} [{label}]: max_abs_err={err:.3e} (tol rtol=atol={KERNEL_TOL}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); "
+            f"two calls equal bit for bit")
+        out[kernel.name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None)
+    return out
 
 
 def reset_launches():
@@ -619,10 +723,10 @@ def kernel_group(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def profile_run(torch, run, what: str, iters: int = 3) -> None:
+def profile_run(torch, run, what: str, iters: int = 3) -> dict:
     """Device time of ``run`` by kernel group under torch.profiler, and
     the device's idle share (1 - busy / host time, unclamped: a negative
-    share means kernels overlapped)."""
+    share means kernels overlapped); returns the ms per run by group."""
     from collections import defaultdict
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -652,6 +756,7 @@ def profile_run(torch, run, what: str, iters: int = 3) -> None:
     log(f"  top kernels (ms per {what}):")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {ms:9.3f}  {name[:100]}")
+    return dict(groups)
 
 
 def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> Path:
@@ -945,7 +1050,8 @@ def phase_cluster(torch, seed: int, device="cuda") -> dict:
         if not math.isfinite(metrics["loss"]):
             raise AssertionError(f"loss {metrics['loss']} is not finite")
         losses.append(metrics["loss"])
-        step_ms.extend(ms if train_mode else [])
+        if train_mode:
+            step_ms.append(ms)
         what = "training epoch" if train_mode else "validation pass"
         drawn = (f"drawn from [{tc.num_parts_train - tc.cluster_jitter}, "
                  f"{tc.num_parts_train + tc.cluster_jitter})" if train_mode
@@ -966,7 +1072,9 @@ def phase_cluster(torch, seed: int, device="cuda") -> dict:
 
     reset_launches()
     piece_step = epoch(True)
-    profile_run(torch, lambda: epoch(True), "training epoch", iters=1)
+    before = read_launches()
+    groups = profile_run(torch, lambda: epoch(True), "training epoch", iters=1)
+    in_epoch = {k: v - before[k] for k, v in read_launches().items()}
     epoch(False)
     torch.cuda.synchronize()
     total = read_launches()
@@ -975,8 +1083,21 @@ def phase_cluster(torch, seed: int, device="cuda") -> dict:
     if piece_step != expected_launches("batchnorm", "layer"):
         raise AssertionError(f"piece step launch counts {piece_step}, expected "
                              f"{expected_launches('batchnorm', 'layer')}")
+    def spread(ms):  # median, and slowest over median
+        med = sorted(ms)[len(ms) // 2]
+        return med, max(ms) / med
+
+    both = step_ms[0] + step_ms[1]
+    log(f"  profiled epoch: device ms epilog_bwd {groups.get('port: epilog_bwd', 0.0):.3f}, "
+        f"rev_bwd {groups.get('port: rev_bwd', 0.0):.3f}; slowest piece step / median "
+        f"{spread(step_ms[1])[1]:.3f} in it, {spread(both)[1]:.3f} over both epochs")
+    log("  profiled epoch, by kernel entry: device ms, launches, ms per launch")
+    for name, count in in_epoch.items():
+        if count:
+            ms = groups.get(f"port: {name}", 0.0)
+            log(f"    {name:30s} {ms:9.3f} {count:5d} {ms / count:8.4f}")
     log(f"  piece step ms over both epochs (CUDA events): median "
-        f"{sorted(step_ms)[len(step_ms) // 2]:.3f} of {len(step_ms)}; sampler host s per "
+        f"{spread(both)[0]:.3f} of {len(both)}; sampler host s per "
         f"training epoch {[round(x, 4) for x in train_probe.seconds]}; peak device memory "
         f"{peak / 2**30:.3f} GiB; losses {[round(x, 5) for x in losses]}")
     del params, opt, sample
@@ -1129,6 +1250,24 @@ def main() -> int:
         for row, cross in zip(kernels, phase_parity(torch, graphs["cross-locus"], args.seed)):
             row["cross_locus"] = {k: cross[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        # every entry on the padded ClusterGCN piece; the edge walks on a
+        # hub row
+        for label, make in (("piece", piece_graph), ("hub", hub_graph)):
+            g = make(args.seed)
+            deg = [int(c.offsets[1:].sub(c.offsets[:-1]).max()) for c in (g.by_dst, g.by_src)]
+            log(f"  {label} graph: {g.n_nodes} nodes padded to {g.n_nodes_padded}, "
+                f"{g.n_edges} edges padded to {g.n_edges_padded} ({g.n_edges_padded - g.n_edges} "
+                f"padded edges, {1 - g.n_edges / g.n_edges_padded:.2%} of the rows); largest "
+                f"in-degree {deg[0]}, out-degree {deg[1]}")
+            if label == "piece":
+                got = {r["name"]: r for r in phase_parity(torch, g, args.seed)}
+            else:
+                got = phase_walks(torch, g, args.seed, label)
+            for row in kernels:
+                if row["name"] in got:
+                    row[label] = {k: got[row["name"]][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            del g
     torch.cuda.empty_cache()
 
     log("phase 3: full-scale scoring (16 layers, D=256)")

@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define GNNOME_API extern "C" __attribute__((visibility("default")))
 
 namespace gnnome {
@@ -47,6 +49,145 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
 #pragma unroll
     for (int q = 0; q < VEC; ++q) p[q] = v[q];
   }
+}
+
+// Streaming forms for [E, D] data that is read or written once and is far
+// larger than the L2 (ld.global.cs / st.global.cs: evict first), so it does
+// not push out the node tables that neighbouring edges share.
+template <int VEC>
+__device__ __forceinline__ void load_vec_cs(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) v[q] = __ldcs(p + q);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec_cs(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) __stcs(p + q, v[q]);
+  }
+}
+
+// load_vec_cs where CS, else load_vec. The walks stream [E, D] inputs with
+// ld.global.cs where they also gather node-table rows (which the streamed
+// data would push out of the L2), and with plain loads where they do not
+// (the pregathered forms: 0-3% faster so on the H100, PERF.md section 6).
+template <bool CS, int VEC>
+__device__ __forceinline__ void load_stream(const float* p, float (&v)[VEC]) {
+  if constexpr (CS) {
+    load_vec_cs<VEC>(p, v);
+  } else {
+    load_vec<VEC>(p, v);
+  }
+}
+
+// Edge-balanced walks (csrc/epilog_bwd.cu, csrc/sigma_rows.cuh). A walker
+// is a group of 2^lanes_log2 lanes of one warp (8, 16 or 32). The positions
+// [0, n_rows) are cut into tiles of 4 consecutive positions, and walker w
+// of W takes tiles w, w + W, w + 2W, ...: a fixed set of equal spans, from
+// the block and warp index alone (no work counter, so a launch repeats
+// exactly). A row's edges may fall in several tiles (a hub row is split),
+// and padded positions are ordinary positions of the last tiles. The
+// walkers that run at once work on neighbouring tiles, so the rows their
+// edges gather (node-table rows, and the [E, D] rows a by_src walk reads
+// through order) lie in a window of W tiles: one span of n_rows / W
+// positions per walker spread them over the whole graph and ran rev_bwd
+// 17-20% slower than a warp per row did; tiles of 32 positions 6% slower,
+// of 4 positions 2% faster (H100, 150k / 1M; PERF.md section 6).
+//
+// A walker goes a tile at a time: each lane of the first `tile` of the
+// group reads the ids of one position of the tile (those of the next tile
+// are in flight meanwhile), and the group takes them position by position
+// with shuffles over its own lanes (`mask`), so no load waits on an id load
+// per edge.
+
+// log2 of the positions of a tile: 4 (of 32, 16, 8, 4 and 2 tried on the
+// H100 at 150k / 1M, D = 256; PERF.md section 6)
+constexpr int WALK_TILE_LOG2 = 2;
+
+struct Walker {
+  int lanes;      // lanes of the group
+  int tile;       // positions in a tile (at most lanes)
+  int sl;         // this lane's index in its group
+  unsigned mask;  // the group's lanes in the warp
+  int64_t first;  // the walker's first tile starts here
+  int64_t stride; // positions from one of its tiles to the next
+};
+
+__device__ __forceinline__ Walker edge_walker(int lanes_log2) {
+  const int lane = threadIdx.x & 31;
+  const int slots = 32 >> lanes_log2;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t walkers = ((int64_t)gridDim.x * blockDim.x >> 5) * slots;
+  Walker w;
+  w.lanes = 1 << lanes_log2;
+  w.sl = lane & (w.lanes - 1);
+  w.mask = w.lanes == 32 ? 0xffffffffu : ((1u << w.lanes) - 1u) << (lane & ~(w.lanes - 1));
+  const int tile_log2 = lanes_log2 < WALK_TILE_LOG2 ? lanes_log2 : WALK_TILE_LOG2;
+  w.tile = 1 << tile_log2;
+  w.first = (warp * slots + (lane >> lanes_log2)) << tile_log2;
+  w.stride = walkers << tile_log2;
+  return w;
+}
+
+// position i of the group's tile: the value `mine` that its lane holds
+template <typename T>
+__device__ __forceinline__ T tile_take(const Walker& w, T mine, int i) {
+  return __shfl_sync(w.mask, mine, i, w.lanes);
+}
+
+// The lane group and chunks per lane (1, 2 or 4) for rows of per_row chunks
+// of VEC floats (csrc/take.cu and the walks): the power of two nearest
+// per_row, 8 to 32 lanes, so that a row of up to 128 chunks (D = 512 at
+// VEC = 4) is one pass; the walks take wider rows (only VEC = 1 at D > 128)
+// in several column passes.
+inline void lane_layout(int per_row, int* lanes_log2, int* chunks) {
+  int l = 3;
+  while (l < 5 && (1 << l) < per_row) ++l;
+  const int per_lane = (per_row + (1 << l) - 1) >> l;
+  *lanes_log2 = l;
+  *chunks = per_lane <= 1 ? 1 : per_lane <= 2 ? 2 : 4;
+}
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Int<CH>{}) for the chunks per lane that lane_layout chose: the host
+// side's one switch from that count to a kernel instance, as in
+// with_chunks(chunks, [&](auto ch) { return launch<VEC, decltype(ch)::value>(...); })
+template <class F>
+inline auto with_chunks(int chunks, F f) {
+  if (chunks == 1) return f(Int<1>{});
+  if (chunks == 2) return f(Int<2>{});
+  return f(Int<4>{});
+}
+
+// Blocks of `threads` that fill the card once for `kernel` (resident blocks
+// per SM times the SMs), and no more than give every walker `min_span`
+// positions of n_rows (a tile at least): the one fixed grid of an
+// edge-balanced walk.
+template <typename K>
+inline cudaError_t walk_grid(K kernel, int threads, size_t smem, int device,
+                             int64_t n_rows, int64_t walkers_per_block, int64_t min_span,
+                             unsigned* grid) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  int64_t blocks = (n_rows + walkers_per_block * min_span - 1) / (walkers_per_block * min_span);
+  const int64_t full = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > full) blocks = full;
+  if (blocks < 1) blocks = 1;
+  *grid = static_cast<unsigned>(blocks);
+  return cudaSuccess;
 }
 
 // Blocks for a grid-stride loop over `work` items: enough to fill the card,

@@ -1,7 +1,8 @@
 // Backward of the GatedGCN gate epilog with the forward aggregation
-// (csrc/gate_epilog.cu). Per canonical edge k, with gc = g_sums[dst[k]]
-// = [g1 || g2] (a zero row for padded edges) and vals = values[src[k]]
-// (epilog_bwd) or the pregathered row vals[k] (epilog_bwd_pregathered):
+// (csrc/gate_epilog.cu). Per canonical edge k, with gc = g_sums[key[k]]
+// = [g1 || g2] (a zero row where key[k] is PAD_SEGMENT: a padded edge) and
+// vals = values[src[k]] (epilog_bwd) or the pregathered row vals[k]
+// (epilog_bwd_pregathered):
 //   pre     = gate_raw[k] * scale2 + bias2          (recomputed)
 //   s       = sigmoid(e_new[k])
 //   d_enew  = g_enew[k] + (g1 * vals + g2) * s * (1 - s)
@@ -20,120 +21,234 @@
 //
 // Bound on the H100: bytes. At E = 1M, D = 256, N = 150k: gate_raw, e_new
 // and g_enew read (3.07 GB), three [E, D] outputs written (3.07 GB), the
-// g_sums (307 MB) and values (154 MB) tables, ids and offsets (5 MB):
-// about 6.6 GB, 2.0 ms at 3.35 TB/s; with pregathered rows (1.02 GB) in
-// place of the values table, about 7.5 GB, 2.2 ms. One exp per element.
+// g_sums (307 MB) and values (154 MB) tables, key and src (8 MB): about
+// 6.6 GB, 2.0 ms at 3.35 TB/s; with pregathered rows (1.02 GB) in place of
+// the values table, about 7.5 GB, 2.2 ms. One exp per element.
 //
-// Design: one warp per destination row of by_dst (canonical order is
-// dst-sorted, so a row's edges are contiguous), each lane 4 consecutive
-// columns (16-byte accesses) per 128-column slice: the row's g_sums slice
-// is loaded once and held in registers while the warp walks its edges, as
-// the forward kernel does. The row's d_affine contribution is summed in
-// registers and added to the warp's own column sums in shared memory, so
-// no two threads ever add to one address. A fixed grid of blocks walks the
-// rows in a fixed order; each block leaves one partial [2, D] row and a
-// second kernel adds the partials in a fixed order: deterministic, no
-// float atomics. Padded edges (past offsets[N]) belong to no row; they
-// form one extra row with a zero g_sums, so the same loop writes their
-// outputs and adds them to d_affine. `pre` is rounded as the forward kernel
-// rounds it (gnnome::bn_affine), so the ReLU's mask is the forward's own.
+// Design: an edge-balanced walk, as the TPU kernel's fixed chunks of edges
+// (gnnome::edge_walker, csrc/common.cuh). A walker (a lane group of one
+// warp, 32 lanes at D = 256) takes every W-th tile of 4 canonical
+// positions, so a ClusterGCN piece's padded tail and a hub row spread over
+// as many walkers as their edges need, and the walkers that run at once
+// gather value rows from one window of the table, which stays in the L2.
+// A position's row is key[k]: the walker holds the g_sums slice of the
+// current key in registers and loads the next one only where the key
+// changes, in the same round of loads as that edge's rows; a PAD_SEGMENT
+// key reads as a zero row, and its e_new and value rows are not loaded. Each lane owns
+// CH chunks of 4 columns (16-byte accesses) of the whole row, so the ids
+// are read once per edge (one id per lane, the next tile's in flight,
+// handed out with shuffles), and issues the loads of R = 2 edges before
+// the first one's stores. The three [E, D] outputs are written with
+// streaming stores (st.global.cs), each written once and 40x the L2; the
+// [E, D] inputs are read with streaming loads where the values are a table
+// to keep in the L2, and with plain loads where they are pregathered rows.
+// d_affine is summed in registers over the walker's tiles, then over the
+// lane groups of a warp with shuffles and over the warps of a block in
+// shared memory, each in a fixed order; each block leaves one partial
+// [2, D] row and a second kernel adds the partials in a fixed order:
+// deterministic (two calls agree bit for bit), no float atomics, no work
+// counter. `pre` is rounded as the forward kernel rounds it
+// (gnnome::bn_affine), so the ReLU's mask is the forward's own.
 #include "common.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
+constexpr int64_t MIN_SPAN = 32;  // positions a walker takes at least
+constexpr unsigned FULL = 0xffffffffu;
+// edges in flight per walker (1, 2 and 4 tried; PERF.md section 6)
+constexpr int R = 2;
 
-// GATHER: the value row of edge k is values[src[k]], else vals[k]
-template <int VEC, bool GATHER>
-__device__ __forceinline__ void epilog_bwd_rows(
+// GATHER: the value row of edge k is values[src[k]] (a node table), else
+// vals[k] (pregathered, read once). CH: 16-byte chunks of a row per lane.
+template <int VEC, int CH, bool GATHER>
+__device__ __forceinline__ void epilog_bwd_walk(
     const float* __restrict__ gate_raw, const float* __restrict__ e_new,
     const float* __restrict__ g_enew, const float* __restrict__ g_sums,
     const float* __restrict__ values, const float* __restrict__ affine,
-    const int* __restrict__ offsets, const int* __restrict__ src,
+    const int* __restrict__ key, const int* __restrict__ src,
     float* __restrict__ d_gate_raw, float* __restrict__ d_e_in,
     float* __restrict__ d_vals, float* __restrict__ partial, int64_t n_nodes,
-    int64_t n_rows, int d) {
+    int64_t n_rows, int d, int lanes_log2) {
+  constexpr bool CS = GATHER;  // streaming loads beside a table gather
   extern __shared__ float red[];  // [WARPS][2][d]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const gnnome::Walker w = gnnome::edge_walker(lanes_log2);
+  const int per_row = d / VEC;  // chunks in a row
   float* mine = red + (int64_t)warp * 2 * d;
-  for (int c = lane * VEC; c < d; c += 32 * VEC) {
+  for (int i = lane; i < 2 * d; i += 32) mine[i] = 0.0f;
+  __syncwarp();
+
+  // one pass over the walker's tiles per CH * lanes chunks of the row (one
+  // pass for every D <= 512 at VEC = 4); `base` is alike on every lane of
+  // the warp
+  for (int base = 0; base < per_row; base += w.lanes * CH) {
+    bool has[CH];
+    int col[CH];
+    float sc[CH][VEC], bi[CH][VEC], ds[CH][VEC], db[CH][VEC];
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) {
-      mine[c + q] = 0.0f;
-      mine[d + c + q] = 0.0f;
+    for (int q = 0; q < CH; ++q) {
+      const int c = base + w.sl + q * w.lanes;
+      has[q] = c < per_row;
+      col[q] = c * VEC;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        sc[q][v] = bi[q][v] = ds[q][v] = db[q][v] = 0.0f;
+      }
+      if (has[q]) {
+        gnnome::load_vec<VEC>(affine + col[q], sc[q]);
+        gnnome::load_vec<VEC>(affine + d + col[q], bi[q]);
+      }
     }
-  }
-  const int64_t n_warps = (int64_t)gridDim.x * WARPS;
-  // rows 0..n_nodes-1 are the destination nodes; row n_nodes is the tail
-  // of padded edges [offsets[n_nodes], n_rows)
-  for (int64_t v = (int64_t)blockIdx.x * WARPS + warp; v <= n_nodes; v += n_warps) {
-    const bool tail = v == n_nodes;
-    const int64_t beg = offsets[v];
-    const int64_t end = tail ? n_rows : offsets[v + 1];
-    if (beg >= end) continue;
-    for (int c = lane * VEC; c < d; c += 32 * VEC) {
-      float sc[VEC], bi[VEC], g1[VEC] = {}, g2[VEC] = {};
-      gnnome::load_vec<VEC>(affine + c, sc);
-      gnnome::load_vec<VEC>(affine + d + c, bi);
-      if (!tail) {
-        gnnome::load_vec<VEC>(g_sums + v * 2 * d + c, g1);
-        gnnome::load_vec<VEC>(g_sums + v * 2 * d + d + c, g2);
-      }
-      float ds[VEC] = {}, db[VEC] = {};
-      for (int64_t k = beg; k < end; ++k) {
-        const int64_t so = (GATHER ? (int64_t)src[k] : k) * d;
-        float gr[VEC], en[VEC], ge[VEC], val[VEC];
-        float o_gr[VEC], o_en[VEC], o_v[VEC];
-        gnnome::load_vec<VEC>(gate_raw + k * d + c, gr);
-        gnnome::load_vec<VEC>(e_new + k * d + c, en);
-        gnnome::load_vec<VEC>(g_enew + k * d + c, ge);
-        gnnome::load_vec<VEC>(values + so + c, val);
+    unsigned cur = ~0u;  // the key whose g_sums slice gc1, gc2 hold
+    float gc1[CH][VEC] = {}, gc2[CH][VEC] = {};
+    // the ids of a tile's positions, one position per lane; those of the
+    // next tile are in flight while this one is walked
+    unsigned nx_key = ~0u;
+    int nx_src = 0;
+    auto fetch = [&](int64_t t) {
+      const int64_t jm = t + w.sl;
+      const bool live = w.sl < w.tile && jm < n_rows;
+      nx_key = live ? static_cast<unsigned>(key[jm]) : ~0u;
+      nx_src = GATHER && live ? src[jm] : 0;
+    };
+    fetch(w.first);
+    for (int64_t t0 = w.first; t0 < n_rows; t0 += w.stride) {
+      const int n_t = static_cast<int>(n_rows - t0 < w.tile ? n_rows - t0 : w.tile);
+      const unsigned my_key = nx_key;
+      const int my_src = nx_src;
+      fetch(t0 + w.stride);
+      for (int i0 = 0; i0 < n_t; i0 += R) {  // alike on every lane of the group
+        unsigned kr[R];
+        int64_t vr[R];
 #pragma unroll
-        for (int q = 0; q < VEC; ++q) {
-          const float pre = gnnome::bn_affine(gr[q], sc[q], bi[q]);
-          const float s = gnnome::sigmoid(en[q]);
-          const float d_en = ge[q] + (g1[q] * val[q] + g2[q]) * (s * (1.0f - s));
-          const float d_pre = pre > 0.0f ? d_en : 0.0f;
-          o_gr[q] = d_pre * sc[q];
-          o_en[q] = d_en;
-          o_v[q] = g1[q] * s;
-          ds[q] += d_pre * gr[q];
-          db[q] += d_pre;
+        for (int r = 0; r < R; ++r) {
+          const unsigned k = gnnome::tile_take(w, my_key, (i0 + r) & (w.tile - 1));
+          kr[r] = i0 + r < n_t ? k : ~0u;
+          vr[r] = GATHER ? gnnome::tile_take(w, my_src, (i0 + r) & (w.tile - 1)) : 0;
         }
-        gnnome::store_vec<VEC>(d_gate_raw + k * d + c, o_gr);
-        gnnome::store_vec<VEC>(d_e_in + k * d + c, o_en);
-        gnnome::store_vec<VEC>(d_vals + k * d + c, o_v);
-      }
+        float gr[R][CH][VEC], en[R][CH][VEC], ge[R][CH][VEC], val[R][CH][VEC];
+        float g1[R][CH][VEC], g2[R][CH][VEC];
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) {
-        mine[c + q] += ds[q];
-        mine[d + c + q] += db[q];
+        for (int r = 0; r < R; ++r) {
+          const int64_t j = t0 + i0 + r;
+          const bool live = i0 + r < n_t;
+          // the g_sums slice of this edge's key: loaded only where the key
+          // changes, and in the same round of loads as the edge's rows
+          const unsigned prev = r == 0 ? cur : kr[r - 1];
+#pragma unroll
+          for (int q = 0; q < CH; ++q) {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              gr[r][q][v] = en[r][q][v] = ge[r][q][v] = val[r][q][v] = 0.0f;
+              g1[r][q][v] = r == 0 ? gc1[q][v] : g1[r - 1][q][v];
+              g2[r][q][v] = r == 0 ? gc2[q][v] : g2[r - 1][q][v];
+            }
+            if (!(live && has[q])) continue;
+            const int64_t off = j * d + col[q];
+            gnnome::load_stream<CS, VEC>(gate_raw + off, gr[r][q]);
+            gnnome::load_stream<CS, VEC>(g_enew + off, ge[r][q]);
+            // a padded edge's g1 and g2 are zero: d_enew = g_enew and
+            // d_vals = 0 need neither its e_new row nor its value row
+            if (kr[r] < n_nodes) {
+              gnnome::load_stream<CS, VEC>(e_new + off, en[r][q]);
+              if constexpr (GATHER) {
+                gnnome::load_vec<VEC>(values + vr[r] * d + col[q], val[r][q]);
+              } else {
+                gnnome::load_stream<CS, VEC>(values + off, val[r][q]);
+              }
+            }
+            if (kr[r] != prev) {
+              if (kr[r] < n_nodes) {
+                gnnome::load_vec<VEC>(g_sums + (int64_t)kr[r] * 2 * d + col[q], g1[r][q]);
+                gnnome::load_vec<VEC>(g_sums + (int64_t)kr[r] * 2 * d + d + col[q], g2[r][q]);
+              } else {
+#pragma unroll
+                for (int v = 0; v < VEC; ++v) g1[r][q][v] = g2[r][q][v] = 0.0f;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (i0 + r >= n_t) break;
+          const int64_t j = t0 + i0 + r;
+          cur = kr[r];
+#pragma unroll
+          for (int q = 0; q < CH; ++q) {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              gc1[q][v] = g1[r][q][v];
+              gc2[q][v] = g2[r][q][v];
+            }
+            if (!has[q]) continue;
+            float o_gr[VEC], o_en[VEC], o_v[VEC];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              const float pre = gnnome::bn_affine(gr[r][q][v], sc[q][v], bi[q][v]);
+              const float s = gnnome::sigmoid(en[r][q][v]);
+              const float d_en = ge[r][q][v] + (g1[r][q][v] * val[r][q][v] + g2[r][q][v]) *
+                                                   (s * (1.0f - s));
+              const float d_pre = pre > 0.0f ? d_en : 0.0f;
+              o_gr[v] = d_pre * sc[q][v];
+              o_en[v] = d_en;
+              o_v[v] = g1[r][q][v] * s;
+              ds[q][v] += d_pre * gr[r][q][v];
+              db[q][v] += d_pre;
+            }
+            const int64_t off = j * d + col[q];
+            gnnome::store_vec_cs<VEC>(d_gate_raw + off, o_gr);
+            gnnome::store_vec_cs<VEC>(d_e_in + off, o_en);
+            gnnome::store_vec_cs<VEC>(d_vals + off, o_v);
+          }
+        }
+      }
+    }
+    // the lane groups of the warp hold the same columns: add them in a
+    // fixed butterfly (every lane gets the same bits), then the first group
+    // adds them to the warp's row
+#pragma unroll
+    for (int q = 0; q < CH; ++q) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        for (int off = w.lanes; off < 32; off <<= 1) {
+          ds[q][v] += __shfl_xor_sync(FULL, ds[q][v], off);
+          db[q][v] += __shfl_xor_sync(FULL, db[q][v], off);
+        }
+      }
+      if (lane < w.lanes && has[q]) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          mine[col[q] + v] += ds[q][v];
+          mine[d + col[q] + v] += db[q][v];
+        }
       }
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 2 * d; i += THREADS) {
     float s = 0.0f;
-    for (int w = 0; w < WARPS; ++w) s += red[(int64_t)w * 2 * d + i];
+    for (int wp = 0; wp < WARPS; ++wp) s += red[(int64_t)wp * 2 * d + i];
     partial[(int64_t)blockIdx.x * 2 * d + i] = s;
   }
 }
 
+// one device kernel name per entry, so a profile tells them apart
 #define EPILOG_BWD_KERNEL(NAME, GATHER)                                                 \
-  template <int VEC>                                                                   \
+  template <int VEC, int CH>                                                           \
   __global__ void __launch_bounds__(THREADS) NAME(                                     \
       const float* __restrict__ gate_raw, const float* __restrict__ e_new,             \
       const float* __restrict__ g_enew, const float* __restrict__ g_sums,              \
       const float* __restrict__ values, const float* __restrict__ affine,              \
-      const int* __restrict__ offsets, const int* __restrict__ src,                    \
+      const int* __restrict__ key, const int* __restrict__ src,                        \
       float* __restrict__ d_gate_raw, float* __restrict__ d_e_in,                      \
       float* __restrict__ d_vals, float* __restrict__ partial, int64_t n_nodes,        \
-      int64_t n_rows, int d) {                                                         \
-    epilog_bwd_rows<VEC, GATHER>(gate_raw, e_new, g_enew, g_sums, values, affine,      \
-                                 offsets, src, d_gate_raw, d_e_in, d_vals, partial,    \
-                                 n_nodes, n_rows, d);                                  \
+      int64_t n_rows, int d, int lanes_log2) {                                         \
+    epilog_bwd_walk<VEC, CH, GATHER>(gate_raw, e_new, g_enew, g_sums, values, affine,  \
+                                     key, src, d_gate_raw, d_e_in, d_vals, partial,    \
+                                     n_nodes, n_rows, d, lanes_log2);                  \
   }
 
 EPILOG_BWD_KERNEL(epilog_bwd_kernel, true)
@@ -145,74 +260,78 @@ __global__ void __launch_bounds__(256) affine_reduce_kernel(
   gnnome::reduce_partials(partial, d_affine, n_parts, 2 * (int64_t)d);
 }
 
-template <int VEC>
+template <int VEC, int CH>
 int launch(const float* gate_raw, const float* e_new, const float* g_enew,
            const float* g_sums, const float* values, const float* affine,
-           const int* offsets, const int* src, float* d_gate_raw, float* d_e_in,
+           const int* key, const int* src, float* d_gate_raw, float* d_e_in,
            float* d_vals, float* partial, float* d_affine, int64_t n_nodes,
-           int64_t n_rows, int d, int n_parts, cudaStream_t s) {
+           int64_t n_rows, int d, int max_parts, int lanes_log2, int device,
+           cudaStream_t s) {
+  const auto kernel = src != nullptr ? epilog_bwd_kernel<VEC, CH>
+                                     : epilog_bwd_pregathered_kernel<VEC, CH>;
   const size_t smem = sizeof(float) * WARPS * 2 * d;
-  cudaError_t err;
-  if (src != nullptr) {
-    err = gnnome::allow_smem(epilog_bwd_kernel<VEC>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    epilog_bwd_kernel<VEC><<<n_parts, THREADS, smem, s>>>(
-        gate_raw, e_new, g_enew, g_sums, values, affine, offsets, src, d_gate_raw,
-        d_e_in, d_vals, partial, n_nodes, n_rows, d);
-  } else {
-    err = gnnome::allow_smem(epilog_bwd_pregathered_kernel<VEC>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    epilog_bwd_pregathered_kernel<VEC><<<n_parts, THREADS, smem, s>>>(
-        gate_raw, e_new, g_enew, g_sums, values, affine, offsets, src, d_gate_raw,
-        d_e_in, d_vals, partial, n_nodes, n_rows, d);
-  }
+  cudaError_t err = gnnome::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned grid = 0;
+  err = gnnome::walk_grid(kernel, THREADS, smem, device, n_rows,
+                          WARPS * (32 >> lanes_log2), MIN_SPAN, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (grid > static_cast<unsigned>(max_parts)) grid = static_cast<unsigned>(max_parts);
+  kernel<<<grid, THREADS, smem, s>>>(gate_raw, e_new, g_enew, g_sums, values, affine,
+                                     key, src, d_gate_raw, d_e_in, d_vals, partial,
+                                     n_nodes, n_rows, d, lanes_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   affine_reduce_kernel<<<(2 * d + 31) / 32, 256, 0, s>>>(partial, d_affine,
-                                                          n_parts, d);
+                                                          static_cast<int>(grid), d);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const float* gate_raw, const float* e_new, const float* g_enew,
              const float* g_sums, const float* values, const float* affine,
-             const int* offsets, const int* src, float* d_gate_raw, float* d_e_in,
+             const int* key, const int* src, float* d_gate_raw, float* d_e_in,
              float* d_vals, float* partial, float* d_affine, int64_t n_nodes,
-             int64_t n_rows, int d, int n_parts, int vec4, int device, void* stream) {
+             int64_t n_rows, int d, int max_parts, int vec4, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_parts < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (max_parts < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec4 ? launch<4>(gate_raw, e_new, g_enew, g_sums, values, affine, offsets,
-                          src, d_gate_raw, d_e_in, d_vals, partial, d_affine,
-                          n_nodes, n_rows, d, n_parts, s)
-              : launch<1>(gate_raw, e_new, g_enew, g_sums, values, affine, offsets,
-                          src, d_gate_raw, d_e_in, d_vals, partial, d_affine,
-                          n_nodes, n_rows, d, n_parts, s);
+  int lanes_log2 = 5, chunks = 1;
+  gnnome::lane_layout(vec4 ? d / 4 : d, &lanes_log2, &chunks);
+  const auto run = [&](auto vec) {
+    return gnnome::with_chunks(chunks, [&](auto ch) {
+      return launch<decltype(vec)::value, decltype(ch)::value>(
+          gate_raw, e_new, g_enew, g_sums, values, affine, key, src, d_gate_raw, d_e_in,
+          d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, lanes_log2, device, s);
+    });
+  };
+  return vec4 ? run(gnnome::Int<4>{}) : run(gnnome::Int<1>{});
 }
 
 }  // namespace
 
-// partial: scratch f32 [n_parts, 2, d]; n_parts blocks walk the rows.
+// key: by_dst.key (canonical dst ids, PAD_SEGMENT on padded edges);
+// partial: scratch f32 [max_parts, 2, d], one row per block of the walk.
 GNNOME_API int gnnome_epilog_bwd_f32(
     const float* gate_raw, const float* e_new, const float* g_enew,
-    const float* g_sums, const float* values, const float* affine,
-    const int* offsets, const int* src, float* d_gate_raw, float* d_e_in,
-    float* d_vals, float* partial, float* d_affine, int64_t n_nodes,
-    int64_t n_rows, int d, int n_parts, int vec4, int device, void* stream) {
+    const float* g_sums, const float* values, const float* affine, const int* key,
+    const int* src, float* d_gate_raw, float* d_e_in, float* d_vals, float* partial,
+    float* d_affine, int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec4,
+    int device, void* stream) {
   if (src == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(gate_raw, e_new, g_enew, g_sums, values, affine, offsets, src,
-                  d_gate_raw, d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d,
-                  n_parts, vec4, device, stream);
+  return dispatch(gate_raw, e_new, g_enew, g_sums, values, affine, key, src, d_gate_raw,
+                  d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, vec4,
+                  device, stream);
 }
 
 // vals: [n_rows, d], one pregathered value row per canonical edge
 GNNOME_API int gnnome_epilog_bwd_pregathered_f32(
     const float* gate_raw, const float* e_new, const float* g_enew,
-    const float* g_sums, const float* vals, const float* affine,
-    const int* offsets, float* d_gate_raw, float* d_e_in, float* d_vals,
-    float* partial, float* d_affine, int64_t n_nodes, int64_t n_rows, int d,
-    int n_parts, int vec4, int device, void* stream) {
-  return dispatch(gate_raw, e_new, g_enew, g_sums, vals, affine, offsets, nullptr,
-                  d_gate_raw, d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d,
-                  n_parts, vec4, device, stream);
+    const float* g_sums, const float* vals, const float* affine, const int* key,
+    float* d_gate_raw, float* d_e_in, float* d_vals, float* partial, float* d_affine,
+    int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec4, int device,
+    void* stream) {
+  return dispatch(gate_raw, e_new, g_enew, g_sums, vals, affine, key, nullptr, d_gate_raw,
+                  d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, vec4,
+                  device, stream);
 }

@@ -17,17 +17,20 @@
 //
 // Bound on the H100: bytes. At E = 1M, D = 256, N = 150k: e_new read
 // (1.02 GB), two [E, D] outputs written (2.05 GB), the g_sums (307 MB) and
-// values (154 MB) tables, order and dst or opp_ids (8 MB): about 3.5 GB,
-// 1.06 ms at 3.35 TB/s. One exp per element.
+// values (154 MB) tables, segment_ids, order and dst or opp_ids (12 MB):
+// about 3.5 GB, 1.06 ms at 3.35 TB/s. One exp per element.
 //
-// Design: one warp per source row of the by_src CSR, as the forward kernel
-// walks it (csrc/sigma_rows.cuh): the row's g_sums slice is loaded once into
-// registers, and the warp visits the row's edges through by_src.order,
-// reading each e_new row and the values row of its dst directly (16 bytes
-// per lane). No sums, so no order to keep; nothing assumes a row's edges lie
-// near each other, so graphs with cross-locus edges take the same path (the
-// TPU kernels needed banded windows for every gather). Padded edges
-// (order[offsets[N]:]) form one extra row whose outputs are zero.
+// Design: an edge-balanced walk over the src-sorted positions of by_src
+// (gnnome::sigma_bwd_walk, csrc/sigma_rows.cuh): every walker takes every
+// W-th tile of 4 positions, holds the g_sums slice of the current source
+// row in registers while the row lasts, and reads each edge's e_new row
+// through by_src.order and the values row of its dst directly (16 bytes per
+// lane, two edges in flight, streaming loads and stores for the [E, D]
+// data). The padded tail and a hub row spread over as many walkers as their
+// edges need; a padded position (segment_ids PAD_SEGMENT) writes zeros. No
+// sums, so no order to keep; nothing assumes a row's edges lie near each
+// other, so graphs with cross-locus edges take the same path (the TPU
+// kernels needed banded windows for every gather).
 #include "sigma_rows.cuh"
 
 namespace {
@@ -35,81 +38,88 @@ namespace {
 using gnnome::VAL_BY_EDGE;
 using gnnome::VAL_BY_SORTED;
 
-template <int VEC>
-__global__ void __launch_bounds__(128) rev_bwd_kernel(
+constexpr int THREADS = 256;
+constexpr int64_t MIN_SPAN = 32;  // positions a walker takes at least
+
+template <int VEC, int CH>
+__global__ void __launch_bounds__(THREADS) rev_bwd_kernel(
     const float* __restrict__ e_new, const float* __restrict__ g_sums,
-    const float* __restrict__ values, const int* __restrict__ offsets,
+    const float* __restrict__ values, const int* __restrict__ seg,
     const int* __restrict__ order, const int* __restrict__ dst,
     float* __restrict__ d_e_new, float* __restrict__ d_v_rows, int64_t n_nodes,
-    int64_t n_rows, int d) {
-  gnnome::sigma_bwd_rows<VEC, true, VAL_BY_EDGE, false>(
-      e_new, g_sums, values, offsets, order, dst, d_e_new, d_v_rows, n_nodes, n_rows, d);
+    int64_t n_rows, int d, int lanes_log2) {
+  gnnome::sigma_bwd_walk<VEC, CH, true, VAL_BY_EDGE, false>(
+      e_new, g_sums, values, seg, order, dst, d_e_new, d_v_rows, n_nodes, n_rows, d,
+      lanes_log2);
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(128) opp_bwd_kernel(
+template <int VEC, int CH>
+__global__ void __launch_bounds__(THREADS) opp_bwd_kernel(
     const float* __restrict__ e_new, const float* __restrict__ g_sums,
-    const float* __restrict__ values, const int* __restrict__ offsets,
+    const float* __restrict__ values, const int* __restrict__ seg,
     const int* __restrict__ order, const int* __restrict__ opp_ids,
     float* __restrict__ d_e_sorted, float* __restrict__ d_v_sorted, int64_t n_nodes,
-    int64_t n_rows, int d) {
-  gnnome::sigma_bwd_rows<VEC, true, VAL_BY_SORTED, true>(
-      e_new, g_sums, values, offsets, order, opp_ids, d_e_sorted, d_v_sorted, n_nodes,
-      n_rows, d);
+    int64_t n_rows, int d, int lanes_log2) {
+  gnnome::sigma_bwd_walk<VEC, CH, true, VAL_BY_SORTED, true>(
+      e_new, g_sums, values, seg, order, opp_ids, d_e_sorted, d_v_sorted, n_nodes,
+      n_rows, d, lanes_log2);
 }
 
 // opposite: opp_bwd (ids in sorted order, outputs in sorted order), else rev_bwd
-template <int VEC>
-void launch(bool opposite, unsigned grid, cudaStream_t s, const float* e_new,
-            const float* g_sums, const float* values, const int* offsets,
-            const int* order, const int* ids, float* d_e, float* d_v, int64_t n_nodes,
-            int64_t n_rows, int d) {
-  const int threads = 128;  // 4 rows per block
-  if (opposite) {
-    opp_bwd_kernel<VEC><<<grid, threads, 0, s>>>(e_new, g_sums, values, offsets, order,
-                                                 ids, d_e, d_v, n_nodes, n_rows, d);
-  } else {
-    rev_bwd_kernel<VEC><<<grid, threads, 0, s>>>(e_new, g_sums, values, offsets, order,
-                                                 ids, d_e, d_v, n_nodes, n_rows, d);
-  }
+template <int VEC, int CH>
+cudaError_t launch(bool opposite, int device, cudaStream_t s, const float* e_new,
+                   const float* g_sums, const float* values, const int* seg,
+                   const int* order, const int* ids, float* d_e, float* d_v,
+                   int64_t n_nodes, int64_t n_rows, int d, int lanes_log2) {
+  const auto kernel = opposite ? opp_bwd_kernel<VEC, CH> : rev_bwd_kernel<VEC, CH>;
+  unsigned grid = 0;
+  cudaError_t err = gnnome::walk_grid(kernel, THREADS, 0, device, n_rows,
+                                      (THREADS / 32) * (32 >> lanes_log2), MIN_SPAN, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, 0, s>>>(e_new, g_sums, values, seg, order, ids, d_e, d_v,
+                                  n_nodes, n_rows, d, lanes_log2);
+  return cudaGetLastError();
 }
 
 int dispatch(bool opposite, const float* e_new, const float* g_sums,
-             const float* values, const int* offsets, const int* order,
-             const int* ids, float* d_e, float* d_v, int64_t n_nodes, int64_t n_rows,
-             int d, int vec4, int device, void* stream) {
+             const float* values, const int* seg, const int* order, const int* ids,
+             float* d_e, float* d_v, int64_t n_nodes, int64_t n_rows, int d, int vec4,
+             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (d == 0 || n_rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = gnnome::grid_for((n_nodes + 1) * 32, 128);
-  if (vec4) {
-    launch<4>(opposite, grid, s, e_new, g_sums, values, offsets, order, ids, d_e, d_v,
-              n_nodes, n_rows, d);
-  } else {
-    launch<1>(opposite, grid, s, e_new, g_sums, values, offsets, order, ids, d_e, d_v,
-              n_nodes, n_rows, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  int lanes_log2 = 5, chunks = 1;
+  gnnome::lane_layout(vec4 ? d / 4 : d, &lanes_log2, &chunks);
+  const auto run = [&](auto vec) {
+    return gnnome::with_chunks(chunks, [&](auto ch) {
+      return launch<decltype(vec)::value, decltype(ch)::value>(
+          opposite, device, s, e_new, g_sums, values, seg, order, ids, d_e, d_v, n_nodes,
+          n_rows, d, lanes_log2);
+    });
+  };
+  return static_cast<int>(vec4 ? run(gnnome::Int<4>{}) : run(gnnome::Int<1>{}));
 }
 
 }  // namespace
 
+// seg: by_src.segment_ids (the source id at each sorted position,
+// PAD_SEGMENT on padded edges)
 GNNOME_API int gnnome_rev_bwd_f32(const float* e_new, const float* g_sums,
-                                  const float* values, const int* offsets,
+                                  const float* values, const int* seg,
                                   const int* order, const int* dst, float* d_e_new,
                                   float* d_v_rows, int64_t n_nodes, int64_t n_rows,
                                   int d, int vec4, int device, void* stream) {
-  return dispatch(false, e_new, g_sums, values, offsets, order, dst, d_e_new, d_v_rows,
+  return dispatch(false, e_new, g_sums, values, seg, order, dst, d_e_new, d_v_rows,
                   n_nodes, n_rows, d, vec4, device, stream);
 }
 
 GNNOME_API int gnnome_opp_bwd_f32(const float* e_new, const float* g_sums,
-                                  const float* values, const int* offsets,
+                                  const float* values, const int* seg,
                                   const int* order, const int* opp_ids,
                                   float* d_e_sorted, float* d_v_sorted, int64_t n_nodes,
                                   int64_t n_rows, int d, int vec4, int device,
                                   void* stream) {
-  return dispatch(true, e_new, g_sums, values, offsets, order, opp_ids, d_e_sorted,
+  return dispatch(true, e_new, g_sums, values, seg, order, opp_ids, d_e_sorted,
                   d_v_sorted, n_nodes, n_rows, d, vec4, device, stream);
 }

@@ -29,9 +29,12 @@
 // (gather) or 4.40 GB, 1.31 ms (pregathered), at 3.35 TB/s. One exp per
 // element: far below the f32 line.
 //
-// Design: one warp per key row, 16 bytes per lane, f32 register sums in CSR
-// order (csrc/sigma_rows.cuh): deterministic, no atomics, so remat's
-// recompute reproduces the forward bit for bit. The TPU kernel's one-hot
+// Design: the forward gives one warp per key row, 16 bytes per lane, f32
+// register sums in CSR order (csrc/sigma_rows.cuh): deterministic, no
+// atomics, so remat's recompute reproduces the forward bit for bit. The
+// backward is the edge-balanced walk of gnnome::sigma_bwd_walk over the
+// sorted positions (no sums): the padded tail and a hub row spread over as
+// many walkers as their edges need. The TPU kernel's one-hot
 // matmul blocks over key-sorted inputs exist for the MXU; here the by_dst
 // walk reads canonical rows directly and the by_src walk reads them through
 // order, so no permuted [E, D] copy is made.
@@ -41,6 +44,9 @@ namespace {
 
 using gnnome::VAL_AT_EDGE;
 using gnnome::VAL_BY_EDGE;
+
+constexpr int BWD_THREADS = 256;
+constexpr int64_t MIN_SPAN = 32;  // positions a backward walker takes at least
 
 #define SIGMA_AGGREGATE_KERNEL(NAME, ORDERED, VAL)                                    \
   template <int VEC>                                                                  \
@@ -53,16 +59,15 @@ using gnnome::VAL_BY_EDGE;
   }
 
 #define SIGMA_AGGREGATE_BWD_KERNEL(NAME, ORDERED, VAL)                                 \
-  template <int VEC>                                                                   \
-  __global__ void __launch_bounds__(128) NAME(                                         \
+  template <int VEC, int CH>                                                           \
+  __global__ void __launch_bounds__(BWD_THREADS) NAME(                                 \
       const float* __restrict__ e, const float* __restrict__ g_sums,                   \
-      const float* __restrict__ values, const int* __restrict__ offsets,               \
+      const float* __restrict__ values, const int* __restrict__ seg,                   \
       const int* __restrict__ order, const int* __restrict__ ids,                      \
       float* __restrict__ d_e, float* __restrict__ d_v, int64_t n_nodes,               \
-      int64_t n_rows, int d) {                                                         \
-    gnnome::sigma_bwd_rows<VEC, ORDERED, VAL, false>(e, g_sums, values, offsets,       \
-                                                     order, ids, d_e, d_v, n_nodes,    \
-                                                     n_rows, d);                       \
+      int64_t n_rows, int d, int lanes_log2) {                                         \
+    gnnome::sigma_bwd_walk<VEC, CH, ORDERED, VAL, false>(                              \
+        e, g_sums, values, seg, order, ids, d_e, d_v, n_nodes, n_rows, d, lanes_log2); \
   }
 
 // one device kernel name per form, so a profile tells them apart
@@ -95,24 +100,29 @@ cudaError_t forward(unsigned grid, cudaStream_t s, const float* e, const float* 
   return cudaGetLastError();
 }
 
-template <int VEC>
-cudaError_t backward(unsigned grid, cudaStream_t s, const float* e, const float* g_sums,
-                     const float* values, const int* offsets, const int* order,
+template <int VEC, int CH>
+cudaError_t backward(int device, cudaStream_t s, const float* e, const float* g_sums,
+                     const float* values, const int* seg, const int* order,
                      const int* ids, float* d_e, float* d_v, int64_t n_nodes,
-                     int64_t n_rows, int d) {
-  const int threads = 128;  // 4 rows per block
+                     int64_t n_rows, int d, int lanes_log2) {
+  void (*kernel)(const float*, const float*, const float*, const int*, const int*,
+                 const int*, float*, float*, int64_t, int64_t, int, int);
   if (order == nullptr && ids != nullptr) {
-    sigma_aggregate_bwd_gather_kernel<VEC><<<grid, threads, 0, s>>>(
-        e, g_sums, values, offsets, order, ids, d_e, d_v, n_nodes, n_rows, d);
+    kernel = sigma_aggregate_bwd_gather_kernel<VEC, CH>;
   } else if (order == nullptr) {
-    sigma_aggregate_bwd_kernel<VEC><<<grid, threads, 0, s>>>(
-        e, g_sums, values, offsets, order, ids, d_e, d_v, n_nodes, n_rows, d);
+    kernel = sigma_aggregate_bwd_kernel<VEC, CH>;
   } else if (ids == nullptr) {
-    sigma_aggregate_bwd_by_src_kernel<VEC><<<grid, threads, 0, s>>>(
-        e, g_sums, values, offsets, order, ids, d_e, d_v, n_nodes, n_rows, d);
+    kernel = sigma_aggregate_bwd_by_src_kernel<VEC, CH>;
   } else {
     return cudaErrorInvalidValue;
   }
+  unsigned grid = 0;
+  cudaError_t err = gnnome::walk_grid(kernel, BWD_THREADS, 0, device, n_rows,
+                                      (BWD_THREADS / 32) * (32 >> lanes_log2), MIN_SPAN,
+                                      &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, BWD_THREADS, 0, s>>>(e, g_sums, values, seg, order, ids, d_e, d_v,
+                                      n_nodes, n_rows, d, lanes_log2);
   return cudaGetLastError();
 }
 
@@ -132,19 +142,24 @@ GNNOME_API int gnnome_sigma_aggregate_f32(const float* e, const float* values,
   return static_cast<int>(err);
 }
 
+// seg: the walk's CSR segment_ids (the key at each sorted position,
+// PAD_SEGMENT on padded edges)
 GNNOME_API int gnnome_sigma_aggregate_bwd_f32(
-    const float* e, const float* g_sums, const float* values, const int* offsets,
+    const float* e, const float* g_sums, const float* values, const int* seg,
     const int* order, const int* ids, float* d_e, float* d_v, int64_t n_nodes,
     int64_t n_rows, int d, int vec4, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (d == 0 || n_rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // rows 0..n_nodes: the last one is the tail of padded edges
-  const unsigned grid = gnnome::grid_for((n_nodes + 1) * 32, 128);
-  err = vec4 ? backward<4>(grid, s, e, g_sums, values, offsets, order, ids, d_e, d_v,
-                           n_nodes, n_rows, d)
-             : backward<1>(grid, s, e, g_sums, values, offsets, order, ids, d_e, d_v,
-                           n_nodes, n_rows, d);
-  return static_cast<int>(err);
+  int lanes_log2 = 5, chunks = 1;
+  gnnome::lane_layout(vec4 ? d / 4 : d, &lanes_log2, &chunks);
+  const auto run = [&](auto vec) {
+    return gnnome::with_chunks(chunks, [&](auto ch) {
+      return backward<decltype(vec)::value, decltype(ch)::value>(
+          device, s, e, g_sums, values, seg, order, ids, d_e, d_v, n_nodes, n_rows, d,
+          lanes_log2);
+    });
+  };
+  return static_cast<int>(vec4 ? run(gnnome::Int<4>{}) : run(gnnome::Int<1>{}));
 }

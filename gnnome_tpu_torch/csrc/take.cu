@@ -121,15 +121,13 @@ cudaError_t launch(const float* table, const int* ids, float* out, int n_ids,
 template <int VEC>
 cudaError_t dispatch(const float* table, const int* ids, float* out, int n_ids,
                      int n_rows, int d, int device, cudaStream_t s) {
-  const int per_row = d / VEC;
-  int lanes_log2 = 3;  // 8 lanes at least, so a warp's rows in flight fit 32 ids
-  while (lanes_log2 < 5 && (1 << lanes_log2) < per_row) ++lanes_log2;
-  const int per_lane = (per_row + (1 << lanes_log2) - 1) >> lanes_log2;
-  if (per_lane <= 1)
-    return launch<VEC, 1>(table, ids, out, n_ids, n_rows, d, lanes_log2, device, s);
-  if (per_lane <= 2)
-    return launch<VEC, 2>(table, ids, out, n_ids, n_rows, d, lanes_log2, device, s);
-  return launch<VEC, 4>(table, ids, out, n_ids, n_rows, d, lanes_log2, device, s);
+  // 8 lanes at least, so a warp's rows in flight fit 32 ids
+  int lanes_log2 = 5, chunks = 1;
+  gnnome::lane_layout(d / VEC, &lanes_log2, &chunks);
+  return gnnome::with_chunks(chunks, [&](auto ch) {
+    return launch<VEC, decltype(ch)::value>(table, ids, out, n_ids, n_rows, d, lanes_log2,
+                                            device, s);
+  });
 }
 
 }  // namespace

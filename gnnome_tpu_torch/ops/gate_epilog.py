@@ -9,7 +9,8 @@ value rows per canonical edge, the wide-gather path). The CUDA kernels are
 their reference on the card. The backward (:class:`GateSigmaGather`, the
 JAX ``_fused_gate_gather_bwd`` and ``_fused_gate_bwd``) runs
 ``csrc/epilog_bwd.cu`` (``epilog_bwd_pallas``, or its pregathered entry for
-the XLA VJP of the second), then, with ``src``, the by_src segment sum.
+the XLA VJP of the second; an edge-balanced walk that reads each edge's row
+from ``by_dst.key``), then, with ``src``, the by_src segment sum.
 """
 from __future__ import annotations
 
@@ -45,9 +46,10 @@ EPILOG_BWD_PREGATHERED = register(Kernel(
     replaces="gnnome_tpu/ops/segment.py:1057 _fused_gate_bwd (the VJP of "
              "fused_gate_sigma_aggregate_pallas)"))
 
-# blocks of 8 warps that walk the destination rows (csrc/epilog_bwd.cu);
-# each leaves one partial d_affine row, summed in a fixed order
-_ROWS_PER_BLOCK = 8
+# csrc/epilog_bwd.cu chooses the grid of its walk (the card filled once,
+# fewer blocks where the edges are fewer) and clips it to _MAX_PARTS blocks;
+# each block leaves one partial d_affine row in this scratch (2 MB at
+# D = 256), summed in a fixed order
 _MAX_PARTS = 1024
 
 
@@ -129,21 +131,21 @@ def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor
                                 by_dst, src)
     kernel = EPILOG_BWD_PREGATHERED if src is None else EPILOG_BWD
     floats = [gate_raw, e_new, g_enew, g_sums, values, affine]
-    check_cuda_args(kernel.name, floats, [by_dst.offsets, *extra])
+    check_cuda_args(kernel.name, floats, [by_dst.key, *extra])
     n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate_raw.shape
     if not (gate_raw.shape == e_new.shape == g_enew.shape) \
             or values.shape != (n_rows if src is None else n, d) \
-            or g_sums.shape != (n, 2 * d) or affine.shape != (2, d):
+            or g_sums.shape != (n, 2 * d) or affine.shape != (2, d) \
+            or by_dst.key.shape != (n_rows,):
         raise ValueError(f"{kernel.name}: shape mismatch")
-    n_parts = max(1, min(_MAX_PARTS, -(-(n + 1) // _ROWS_PER_BLOCK)))
     d_gate_raw, d_e_in, d_vals = (torch.empty_like(gate_raw) for _ in range(3))
-    partial = torch.empty((n_parts, 2, d), dtype=torch.float32, device=gate_raw.device)
+    partial = torch.empty((_MAX_PARTS, 2, d), dtype=torch.float32, device=gate_raw.device)
     d_affine = torch.empty((2, d), dtype=torch.float32, device=gate_raw.device)
     vec4 = vec4_ok(d, *floats, d_gate_raw, d_e_in, d_vals)
-    kernel(gate_raw.device, *(t.data_ptr() for t in floats), by_dst.offsets.data_ptr(),
+    kernel(gate_raw.device, *(t.data_ptr() for t in floats), by_dst.key.data_ptr(),
            *(t.data_ptr() for t in extra), d_gate_raw.data_ptr(), d_e_in.data_ptr(),
            d_vals.data_ptr(), partial.data_ptr(), d_affine.data_ptr(), n, n_rows, d,
-           n_parts, int(vec4))
+           _MAX_PARTS, int(vec4))
     return d_gate_raw, d_e_in, d_vals, d_affine
 
 

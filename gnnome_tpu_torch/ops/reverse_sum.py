@@ -5,10 +5,12 @@ and ``fused_sigma_opposite_pallas``. The CUDA kernels are
 ``csrc/reverse_sum.cu``; the plain versions below are their CPU form and
 their reference on the card. The backward of the first
 (:class:`SigmaReverseSum`, the JAX ``_rev_unsorted_bwd``) runs
-``csrc/rev_bwd.cu`` (``rev_bwd_pallas``) and the by_dst segment sum; that
-of the second (:class:`SigmaOpposite`, the JAX ``_fused_opp_bwd``) runs the
-sorted-output entry of ``csrc/rev_bwd.cu`` (``opp_bwd_pallas``), two row
-gathers back to canonical order and the by_dst segment sum.
+``csrc/rev_bwd.cu`` (``rev_bwd_pallas``; an edge-balanced walk over the
+src-sorted positions, each edge's row read from ``by_src.segment_ids``) and
+the by_dst segment sum; that of the second (:class:`SigmaOpposite`, the JAX
+``_fused_opp_bwd``) runs the sorted-output entry of ``csrc/rev_bwd.cu``
+(``opp_bwd_pallas``), two row gathers back to canonical order and the
+by_dst segment sum.
 
 The two compute one function; the opposite form reads each edge's dst id
 contiguously from ``by_src.opp_ids`` and is the JAX package's route when
@@ -95,16 +97,16 @@ def rev_bwd(e_new: torch.Tensor, g_sums: torch.Tensor, values: torch.Tensor,
     if on_cpu(e_new, g_sums, values, by_src.key, by_src.offsets, by_src.order, dst):
         return rev_bwd_plain(e_new, g_sums, values, by_src, dst)
     check_cuda_args("rev_bwd", [e_new, g_sums, values],
-                    [by_src.offsets, by_src.order, dst])
+                    [by_src.segment_ids, by_src.order, dst])
     n, d = values.shape
     n_rows = e_new.shape[0]
     if by_src.offsets.shape[0] != n + 1 or e_new.shape[1] != d \
-            or g_sums.shape != (n, 2 * d):
+            or g_sums.shape != (n, 2 * d) or by_src.segment_ids.shape != (n_rows,):
         raise ValueError("rev_bwd: shape mismatch")
     d_e_new, d_v_rows = torch.empty_like(e_new), torch.empty_like(e_new)
     vec4 = vec4_ok(d, e_new, g_sums, values, d_e_new, d_v_rows)
     REV_BWD(e_new.device, e_new.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
-            by_src.offsets.data_ptr(), by_src.order.data_ptr(), dst.data_ptr(),
+            by_src.segment_ids.data_ptr(), by_src.order.data_ptr(), dst.data_ptr(),
             d_e_new.data_ptr(), d_v_rows.data_ptr(), n, n_rows, d, int(vec4))
     return d_e_new, d_v_rows
 
@@ -180,15 +182,15 @@ def opp_bwd(e_new: torch.Tensor, g_sums: torch.Tensor, values: torch.Tensor, csr
     order, opp_ids = _sorted_parts(csr)
     if on_cpu(e_new, g_sums, values, csr.segment_ids, csr.offsets, order, opp_ids):
         return opp_bwd_plain(e_new, g_sums, values, csr)
-    check_cuda_args("opp_bwd", [e_new, g_sums, values], [csr.offsets, order, opp_ids])
+    check_cuda_args("opp_bwd", [e_new, g_sums, values], [csr.segment_ids, order, opp_ids])
     n, d = values.shape
     n_rows = e_new.shape[0]
     if csr.offsets.shape[0] != n + 1 or e_new.shape[1] != d \
-            or g_sums.shape != (n, 2 * d):
+            or g_sums.shape != (n, 2 * d) or csr.segment_ids.shape != (n_rows,):
         raise ValueError("opp_bwd: shape mismatch")
     d_e, d_v = torch.empty_like(e_new), torch.empty_like(e_new)
     OPP_BWD(e_new.device, e_new.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
-            csr.offsets.data_ptr(), order.data_ptr(), opp_ids.data_ptr(),
+            csr.segment_ids.data_ptr(), order.data_ptr(), opp_ids.data_ptr(),
             d_e.data_ptr(), d_v.data_ptr(), n, n_rows, d,
             int(vec4_ok(d, e_new, g_sums, values, d_e, d_v)))
     return d_e, d_v

@@ -5,7 +5,9 @@ Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:fused_sigma_aggregate_pallas``
 and the custom VJP around it (``gnnome_tpu/ops/segment.py:
 _fused_sigma_aggregate``, whose backward ``_fused_bwd`` is gather-only). The
 CUDA kernels are ``csrc/sigma_aggregate.cu``; the plain versions below are
-their CPU form and their reference on the card. Three forms:
+their CPU form and their reference on the card (the backward kernels walk
+fixed tiles of the CSR's sorted positions, each edge's row read from its
+``segment_ids``). Three forms:
 
 * by_dst with ``ids`` (a node table read at ``ids[k]``): the LayerNorm
   layer's forward aggregation, ``a2h[src]`` gathered in the kernel;
@@ -121,15 +123,16 @@ def sigma_aggregate_bwd(e: torch.Tensor, g_sums: torch.Tensor, values: torch.Ten
     extra = [] if ids is None else [ids]
     if on_cpu(e, g_sums, values, csr.key, csr.offsets, *extra):
         return sigma_aggregate_bwd_plain(e, g_sums, values, csr, ids)
-    ints = [csr.offsets, *extra, *([] if csr.identity else [csr.order])]
+    ints = [csr.segment_ids, *extra, *([] if csr.identity else [csr.order])]
     check_cuda_args(kernel.name, [e, g_sums, values], ints)
     n, (n_rows, d) = csr.offsets.shape[0] - 1, e.shape
     if values.shape != (n_rows if ids is None else n, d) or g_sums.shape != (n, 2 * d) \
-            or (ids is not None and ids.shape[0] != n_rows):
+            or (ids is not None and ids.shape[0] != n_rows) \
+            or csr.segment_ids.shape != (n_rows,):
         raise ValueError(f"{kernel.name}: shape mismatch")
     d_e, d_v = torch.empty_like(e), torch.empty_like(e)
     kernel(e.device, e.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
-           csr.offsets.data_ptr(), None if csr.identity else csr.order.data_ptr(),
+           csr.segment_ids.data_ptr(), None if csr.identity else csr.order.data_ptr(),
            None if ids is None else ids.data_ptr(), d_e.data_ptr(), d_v.data_ptr(),
            n, n_rows, d, int(vec4_ok(d, e, g_sums, values, d_e, d_v)))
     return d_e, d_v

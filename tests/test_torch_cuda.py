@@ -264,6 +264,93 @@ def test_sigma_opposite_kernel(cuda, d):
     assert (got[0][g.n_edges:] == 0).all() and (got[1][g.n_edges:] == 0).all()
 
 
+def _padded_graph(device):
+    """A ClusterGCN-piece-like graph: 15,000 real edges padded to 40,000
+    rows (25,000 padded, 62% of all rows), 3,000 nodes padded to 4,096."""
+    rng = np.random.default_rng(21)
+    src, dst = (rng.integers(0, 3000, 15_000).astype(np.int32) for _ in range(2))
+    g = build_graph(src, dst, 3000, node_pad_multiple=4096, edge_pad_multiple=40_000,
+                    device=device)
+    assert g.n_edges_padded - g.n_edges >= 20_000
+    assert g.n_edges_padded - g.n_edges > 0.25 * g.n_edges_padded
+    return g, rng
+
+
+def _hub_graph(device):
+    """A hub node with 6,000 in-edges and 6,000 out-edges among 10,000
+    random edges on 2,000 nodes, padded to a multiple of 512 edges."""
+    rng = np.random.default_rng(22)
+    n, hub = 2000, 777
+    src = np.concatenate([rng.integers(0, n, 6000), np.full(6000, hub),
+                          rng.integers(0, n, 10_000)]).astype(np.int32)
+    dst = np.concatenate([np.full(6000, hub), rng.integers(0, n, 6000),
+                          rng.integers(0, n, 10_000)]).astype(np.int32)
+    g = build_graph(src, dst, n, edge_pad_multiple=512, device=device)
+    offsets = [c.offsets.cpu().numpy() for c in (g.by_dst, g.by_src)]
+    assert all(o[hub + 1] - o[hub] >= 5000 for o in offsets)
+    return g, rng
+
+
+WALK_ENTRIES = ("epilog_bwd", "epilog_bwd_pregathered", "rev_bwd", "opp_bwd",
+                "sigma_aggregate_bwd_gather", "sigma_aggregate_bwd",
+                "sigma_aggregate_bwd_by_src")
+
+
+def _walk_call(entry, g, rng, d, device):
+    """(kernel call, plain call) of one entry that walks edges, on random
+    inputs of graph ``g``."""
+    n, e = g.n_nodes_padded, g.n_edges_padded
+    e_new, g_sums = _randn(rng, e, d, device=device), _randn(rng, n, 2 * d, device=device)
+    table, rows = _randn(rng, n, d, device=device), _randn(rng, e, d, device=device)
+    if entry.startswith("epilog_bwd"):
+        src = g.src if entry == "epilog_bwd" else None
+        args = (_randn(rng, e, d, device=device), e_new, _randn(rng, e, d, device=device),
+                g_sums, table if src is not None else rows, _affine(rng, d, device),
+                g.by_dst, src)
+        return (lambda: epilog_bwd(*args)), (lambda: epilog_bwd_plain(*args))
+    if entry == "rev_bwd":
+        args = (e_new, g_sums, table, g.by_src, g.dst)
+        return (lambda: rev_bwd(*args)), (lambda: rev_bwd_plain(*args))
+    if entry == "opp_bwd":
+        args = (e_new, g_sums, table, g.by_src)
+        return (lambda: opp_bwd(*args)), (lambda: opp_bwd_plain(*args))
+    csr, values, ids = {"sigma_aggregate_bwd_gather": (g.by_dst, table, g.src),
+                        "sigma_aggregate_bwd": (g.by_dst, rows, None),
+                        "sigma_aggregate_bwd_by_src": (g.by_src, rows, None)}[entry]
+    args = (e_new, g_sums, values, csr, ids)
+    return (lambda: sigma_aggregate_bwd(*args)), (lambda: sigma_aggregate_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("d", [30, 64, 256])
+@pytest.mark.parametrize("entry", WALK_ENTRIES)
+@pytest.mark.parametrize("shape", ["padded", "hub"])
+def test_edge_walks_on_padded_tail_and_hub(cuda, shape, entry, d):
+    """The entries that walk fixed tiles of edges, on a graph whose padded
+    tail outnumbers its real edges and on one with a hub row of 6,000 in-
+    and out-edges: each against its plain version (d_affine as a mean), the
+    launch counted once, the value cotangent (and rev_bwd's and the
+    σ-aggregate's edge cotangent) zero on padded edges, and two calls alike
+    bit for bit (d_affine among them)."""
+    g, rng = (_padded_graph if shape == "padded" else _hub_graph)(cuda)
+    fn, plain = _walk_call(entry, g, rng, d, cuda)
+    before = KERNELS[entry].launches
+    got = fn()
+    torch.cuda.synchronize()
+    assert KERNELS[entry].launches == before + 1
+    ref = plain()
+    per_edge = got[:3] if entry.startswith("epilog_bwd") else got
+    for a, b in zip(per_edge, ref):
+        torch.testing.assert_close(a, b, **TOL)
+    # padding is last in canonical and in sorted order
+    zero_on_pad = got[2:3] if entry.startswith("epilog_bwd") else got
+    assert all((x[g.n_edges:] == 0).all() for x in zero_on_pad)
+    again = fn()
+    if entry.startswith("epilog_bwd"):
+        rows = g.n_edges_padded
+        torch.testing.assert_close(got[3] / rows, ref[3] / rows, **TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 # launches of one 2-layer autograd step under remat="layer" (forward twice)
 STEP_LAUNCHES = {
     "batchnorm": {"take_rows": 2, "gate_front": 4, "gate_sigma_gather": 4,
