@@ -76,10 +76,25 @@ stopped); any failure raises and exits non-zero:
 9. pipeline — ``example.synthetic_example`` on the card (native simulator
              and builder, 15 epochs of an 8-layer, 128-wide model, then
              ``predict``): an assembly with contigs.
+10. bf16 — ``compute_dtype="bfloat16"`` on the BatchNorm model with narrow
+             gathers: the nine bf16 entries (rows 1-9) against their plain
+             versions on bf16 inputs at the main path's shapes (the local
+             graph, D = 256, the score head's gathers at 64) and on the
+             most padded piece's shape, bf16 outputs to one bf16 ulp and
+             f32 outputs to 1e-5 (the gate front to the bound its product's
+             rounding allows, its moments to those of its own bf16 gate);
+             16-layer scoring with the shipped weights through
+             ``eval_step`` (launches, ms, peak, two forwards bit for bit
+             alike, the probabilities against the f32 forward); the
+             full-scale bf16 training steps under ``"layer"`` and ``"none"``
+             (launches, ms, edges/s, peak, idle share, the four losses
+             beside phase 4's f32 losses); one ClusterGCN training epoch
+             under the default ``Config`` in bf16 (ms per piece step).
 
-The line before last is the kernel table as JSON (``launches``: one
-training step, under ``remat="layer"``, of the first of the BatchNorm,
-LayerNorm, wide and LayerNorm + wide steps that runs the kernel; every
+The line before last is the kernel table as JSON, the bf16 entries after
+the f32 ones (``launches``: one training step, under ``remat="layer"``,
+of the first of the BatchNorm, LayerNorm, wide, LayerNorm + wide and bf16
+BatchNorm steps that runs the kernel; every
 count in ``launches_by_path``, the ClusterGCN piece step and phases 7
 and 9 as a whole among them; rows 12-13 are not on a model path, and say
 so), the one before that the card's name and power limit; the last line is
@@ -113,7 +128,14 @@ LOCAL_REACH = 22  # the farthest a bench skip edge reaches (2 * 11)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 TF32_TC_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores (dense)
 KERNEL_TOL = 1e-5  # rtol = atol; the kernels sum in f32 in another order
+# bf16 outputs of the bf16 entries: one bf16 ulp of the larger magnitude
+# plus this atol. Kernel and plain version round the same f32 value, which
+# differs by a few f32 ulps (sum order, a fused multiply-add), so it can
+# fall on either side of a rounding boundary; their f32 outputs (sums,
+# moments, d_affine, d_bias3) are held to KERNEL_TOL as in f32.
+BF16_ATOL = 1e-5
 # edge probabilities, CUDA path vs CPU path (atol; the inference parity of
 # tests/test_torch_inference.py). Logits are not held tighter than the JAX package agrees with the
 # port on the CPU: on the e2e graph with the shipped 16-layer model the two
@@ -192,6 +214,212 @@ def card_name_and_power() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def measure(torch, kernel, max_err, tol, fn, plain, library, n_bytes, n_ops, what="",
+            ops_per_s=FP32_OPS_PER_S) -> dict:
+    """Kernel, plain-version and library-call ms (CUDA events) beside the
+    bound of the work, printed and returned."""
+    ms = time_ms(torch, fn)
+    plain_ms = time_ms(torch, plain)
+    library_ms = time_ms(torch, library) if library else None
+    b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
+    log(f"  {kernel.name}{what}: max_abs_err={max_err:.3e} ({tol}) "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+        f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 at |x| (8 significant bits), as f32."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def check_bf16(name: str, torch, got, ref, atol: float = BF16_ATOL) -> float:
+    """A bf16 output against its plain version: one bf16 ulp plus atol."""
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: dtypes {got.dtype}, {ref.dtype}; bf16 expected")
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    bad = int((err > bf16_ulp(torch, torch.maximum(g.abs(), r.abs())) + atol).sum())
+    if bad or not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: {bad} elements beyond one bf16 ulp + {atol} "
+                             f"(max abs err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def check_gate_front_bf16(torch, got, ref, args) -> float:
+    """The bf16 gate front against its plain version. The product e·W3 is
+    summed in f32 in another order (tensor cores against cuBLAS in f32) and
+    rounded to bf16: where its rounding flips (at most 1% of the elements),
+    proj + b3 and the gate may move by one ulp each, so the gate is held to
+    one ulp of proj, of proj + b3 and of itself. The moments are held to
+    KERNEL_TOL of the f32 moments of the kernel's own bf16 gate (the TPU
+    kernel takes them of the rounded gate), and to the plain version's
+    within what the gates' differences allow."""
+    (gate, mom), (ref_gate, ref_mom) = got, ref
+    _, _, e, w3, b3, _, _, n_real = args
+    g, r = gate.float(), ref_gate.float()
+    err = (g - r).abs()
+    proj = e.float() @ w3.float()
+    pb = proj.to(torch.bfloat16).float() + b3.float()
+    allowed = bf16_ulp(torch, proj) + bf16_ulp(torch, pb) + \
+        bf16_ulp(torch, torch.maximum(g.abs(), r.abs()))
+    del proj, pb
+    flips = float((err > 0).float().mean())
+    bad = int((err > allowed).sum())
+    if bad or flips > 1e-2 or not torch.isfinite(g).all():
+        raise AssertionError(f"gate_front_bf16.gate: {bad} elements beyond the bound, "
+                             f"{flips:.2%} differ (max abs err {float(err.max()):.3e})")
+    real = g[:n_real].double()
+    own = torch.stack([real.sum(0), (real * real).sum(0)]).float()
+    err_mom = check_close("gate_front_bf16.mom/E (own gate)", torch, mom / n_real,
+                          own / n_real, KERNEL_TOL, KERNEL_TOL)
+    dg = err[:n_real].double()
+    slack = torch.stack([dg.sum(0), (dg * 2 * (g[:n_real].abs() + err[:n_real])).sum(0)])
+    if bool(((mom - ref_mom).abs() > slack + KERNEL_TOL * (1 + ref_mom.abs())).any()):
+        raise AssertionError("gate_front_bf16.mom: the kernel's and the plain version's "
+                             "moments differ beyond what their gates' differences allow")
+    return max(float(err.max()), err_mom)
+
+
+def phase_parity_bf16(torch, graph, seed: int) -> list[dict]:
+    """The bf16 entries of rows 1-9 against their plain versions at the
+    BatchNorm model's shapes (D = 256, the score head's gathers at 64), on
+    bf16 inputs; the two edge walks (rows 8, 9) also alike bit for bit in
+    two calls. Bounds count 2 bytes a bf16 element, 4 an f32 one or an id."""
+    from gnnome_tpu_torch.ops.gate_epilog import (
+        EPILOG_BWD_BF16, GATE_SIGMA_GATHER_BF16, epilog_bwd, epilog_bwd_plain,
+        gate_sigma_gather, gate_sigma_gather_plain)
+    from gnnome_tpu_torch.ops.gate_front import (
+        GATE_FRONT_BF16, GATE_FRONT_BWD_BF16, gate_front, gate_front_bwd, gate_front_bwd_plain,
+        gate_front_plain)
+    from gnnome_tpu_torch.ops.reverse_sum import (
+        REV_BWD_BF16, SIGMA_REVERSE_SUM_BF16, rev_bwd, rev_bwd_plain, sigma_reverse_sum,
+        sigma_reverse_sum_plain)
+    from gnnome_tpu_torch.ops.segment_sum import (
+        SEGMENT_SUM_BY_DST_BF16, SEGMENT_SUM_BY_SRC_BF16, segment_sum, segment_sum_plain)
+    from gnnome_tpu_torch.ops.take import TAKE_ROWS_BF16, take_rows, take_rows_plain
+
+    dev, bf = graph.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, e, d, d_score = graph.n_nodes_padded, graph.n_edges_padded, 256, 64
+    er = graph.n_edges
+    u_src = int(torch.unique(graph.src[:er]).numel())
+    u_dst = int(torch.unique(graph.dst[:er]).numel())
+    ulp_tol = f"tol one bf16 ulp + {BF16_ATOL}"
+    f32_tol = f"tol rtol=atol={KERNEL_TOL}"
+    rows_out = []
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def record(kernel, err, tol, *args, key=None, **kw):
+        m = measure(torch, kernel, err, tol, *args, **kw)
+        if key is None:
+            rows_out.append(dict(name=kernel.name, route="cuda", source=kernel.source,
+                                 replaces=kernel.replaces, launches=0, **m))
+        else:
+            rows_out[-1][key] = m
+
+    # 4: the score head's two gathers at 64, and a [N, D] table
+    for key, width in ((None, d_score), ("at_d", d)):
+        table = randn(n, width)
+        err = check_close(f"take_rows_bf16[{width}]", torch, take_rows(table, graph.src).float(),
+                          take_rows_plain(table, graph.src).float(), 0.0, 0.0)
+        record(TAKE_ROWS_BF16, err, "exact", lambda: take_rows(table, graph.src),
+               lambda: take_rows_plain(table, graph.src),
+               lambda: table.index_select(0, graph.src),
+               u_src * width * 2 + e * 4 + e * width * 2, 0, key=key,
+               what="" if key is None else f" [N, {width}]")
+    del table
+
+    # 1: gate front (the product on the tensor cores in bf16)
+    args = (randn(n, d), randn(n, d), randn(e, d), randn(d, d, scale=d ** -0.5), randn(d),
+            graph.src, graph.dst, er)
+    got, ref = gate_front(*args), gate_front_plain(*args)
+    err = check_gate_front_bf16(torch, got, ref, args)
+    record(GATE_FRONT_BF16, err, "tol see check_gate_front_bf16", lambda: gate_front(*args),
+           lambda: gate_front_plain(*args), None,
+           (2 * e * d + (u_src + u_dst) * d + d * d + d) * 2 + 2 * d * 4 + 2 * e * 4,
+           2 * e * d * d, ops_per_s=BF16_TC_OPS_PER_S)
+    gate, e_in = got[0], args[2]
+    del got, ref, args
+
+    # 2: gate epilog + forward aggregation (f32 affine and sums)
+    values = randn(n, d)
+    affine = torch.stack([torch.rand(d, generator=gen, device=dev) + 0.5,
+                          torch.randn(d, generator=gen, device=dev)])
+    args = (gate, e_in, values, affine, graph.by_dst, graph.src)
+    (sums, e_new), (ref_sums, ref_e_new) = gate_sigma_gather(*args), gate_sigma_gather_plain(*args)
+    err = max(check_close("gate_sigma_gather_bf16.sums", torch, sums, ref_sums, KERNEL_TOL,
+                          KERNEL_TOL),
+              check_bf16("gate_sigma_gather_bf16.e_new", torch, e_new, ref_e_new))
+    record(GATE_SIGMA_GATHER_BF16, err, f"{ulp_tol} on e_new, {f32_tol} on sums",
+           lambda: gate_sigma_gather(*args), lambda: gate_sigma_gather_plain(*args), None,
+           (3 * e * d + u_src * d) * 2 + (2 * d + 2 * n * d) * 4 + (n + 1 + e) * 4, 8 * e * d)
+    del sums, ref_sums, ref_e_new, args, gate, e_in
+
+    # 3: reverse aggregation
+    args = (e_new, values, graph.by_src, graph.dst)
+    err = check_close("sigma_reverse_sum_bf16", torch, sigma_reverse_sum(*args),
+                      sigma_reverse_sum_plain(*args), KERNEL_TOL, KERNEL_TOL)
+    record(SIGMA_REVERSE_SUM_BF16, err, f32_tol, lambda: sigma_reverse_sum(*args),
+           lambda: sigma_reverse_sum_plain(*args), None,
+           (er * d + u_dst * d) * 2 + 2 * n * d * 4 + (2 * er + n + 1) * 4, 5 * e * d)
+
+    # 5, 6: segment sums of bf16 rows into f32 (library: index_add_ on bf16)
+    data = randn(e, d)
+    for kernel, csr in ((SEGMENT_SUM_BY_DST_BF16, graph.by_dst),
+                        (SEGMENT_SUM_BY_SRC_BF16, graph.by_src)):
+        key, real = csr.key[:er].long(), data[:er]  # padded edges are last
+        err = check_close(kernel.name, torch, segment_sum(data, csr), segment_sum_plain(data, csr),
+                          KERNEL_TOL, KERNEL_TOL)
+        record(kernel, err, f32_tol, lambda: segment_sum(data, csr),
+               lambda: segment_sum_plain(data, csr),
+               lambda: torch.zeros((n, d), dtype=bf, device=dev).index_add_(0, key, real),
+               er * d * 2 + n * d * 4 + (n + 1) * 4 + (0 if csr.identity else er * 4), e * d)
+    del key, real
+
+    # 7: gate front backward (d_total bf16; d_bias3 f32, compared as a mean)
+    args = (data, randn(e, d), randn(2, d, scale=1.0 / er, dtype=torch.float32), er)
+    got, ref = gate_front_bwd(*args), gate_front_bwd_plain(*args)
+    err = max(check_bf16("gate_front_bwd_bf16.d_total", torch, got[0], ref[0]),
+              check_close("gate_front_bwd_bf16.d_bias3/E", torch, got[1] / e, ref[1] / e,
+                          KERNEL_TOL, KERNEL_TOL))
+    record(GATE_FRONT_BWD_BF16, err, f"{ulp_tol} on d_total, {f32_tol} on d_bias3/E",
+           lambda: gate_front_bwd(*args), lambda: gate_front_bwd_plain(*args), None,
+           3 * e * d * 2 + 3 * d * 4, 5 * e * d)
+    del got, ref, args
+
+    # 8, 9: the edge walks, with their f32 g_sums (rounded to bf16 as they
+    # are used) and f32 affine / d_affine; two calls alike bit for bit
+    g_sums = randn(n, 2 * d, dtype=torch.float32)
+    walks = (
+        (EPILOG_BWD_BF16, epilog_bwd, epilog_bwd_plain,
+         (randn(e, d), e_new, data, g_sums, values, affine, graph.by_dst, graph.src),
+         (5 * e * d + er * d + u_src * d) * 2 + (u_dst * 2 * d + 4 * d) * 4 + (e + er) * 4,
+         18 * e * d),
+        (REV_BWD_BF16, rev_bwd, rev_bwd_plain, (e_new, g_sums, values, graph.by_src, graph.dst),
+         (er * d + 2 * e * d + u_dst * d) * 2 + u_src * 2 * d * 4 + (2 * e + er) * 4,
+         12 * e * d))
+    for kernel, fn, plain, args, n_bytes, n_ops in walks:
+        got, ref = fn(*args), plain(*args)
+        err = max(check_bf16(f"{kernel.name}.{i}", torch, a, b)
+                  for i, (a, b) in enumerate(zip(got[:3], ref[:3])))
+        if len(got) == 4:
+            err = max(err, check_close(f"{kernel.name}.d_affine/E", torch, got[3] / e,
+                                       ref[3] / e, KERNEL_TOL, KERNEL_TOL))
+        if not all(torch.equal(a, b) for a, b in zip(got, fn(*args))):
+            raise AssertionError(f"{kernel.name}: a second call gave other values")
+        tol = f"{ulp_tol} on [E, D]" + (f", {f32_tol} on d_affine/E" if len(got) == 4 else "")
+        record(kernel, err, f"{tol}; two calls alike",
+               lambda fn=fn, args=args: fn(*args), lambda plain=plain, args=args: plain(*args),
+               None, n_bytes, n_ops)
+        del got, ref
+    return rows_out
+
+
 def phase_parity(torch, graph, seed: int) -> list[dict]:
     """Each kernel entry against its plain version at the main paths' shapes."""
     from gnnome_tpu_torch.ops.gate_epilog import (
@@ -224,22 +452,13 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
     u_src, u_dst = rows(graph.src), rows(graph.dst)
     rows_out = []
 
-    def measure(kernel, max_err, tol, fn, plain, library, n_bytes, n_ops, what="",
-                ops_per_s=FP32_OPS_PER_S):
-        ms = time_ms(torch, fn)
-        plain_ms = time_ms(torch, plain)
-        library_ms = time_ms(torch, library) if library else None
-        b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
-        log(f"  {kernel.name}{what}: max_abs_err={max_err:.3e} (tol rtol=atol={tol}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-            f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
-        return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=library_ms)
+    def measure_f32(kernel, max_err, tol, *args, **kw):
+        return measure(torch, kernel, max_err, f"tol rtol=atol={tol}", *args, **kw)
 
     def record(kernel, *args, **kw):
         rows_out.append(dict(name=kernel.name, route="cuda", source=kernel.source,
-                             replaces=kernel.replaces, launches=0, **measure(kernel, *args, **kw)))
+                             replaces=kernel.replaces, launches=0,
+                             **measure_f32(kernel, *args, **kw)))
 
     def close_all(name, got, ref):
         return max(check_close(f"{name}.{i}", torch, a, b, KERNEL_TOL, KERNEL_TOL)
@@ -259,7 +478,7 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
         table = randn(n, width)
         err = check_close(f"take_rows[{width}]", torch, take_rows(table, graph.src),
                           take_rows_plain(table, graph.src), 0.0, 0.0)
-        rows_out[-1][key] = measure(
+        rows_out[-1][key] = measure_f32(
             TAKE_ROWS, err, 0.0, lambda: take_rows(table, graph.src),
             lambda: take_rows_plain(table, graph.src), lambda: table.index_select(0, graph.src),
             u_src * width * 4 + e * 4 + e * width * 4, 0, what=f" [N, {width}]")
@@ -373,7 +592,7 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
                 record(*m)
             else:
                 row = next(r for r in rows_out if r["name"] == kernel.name)
-                row["at_2d"] = measure(*m, what=f" [E, {width}]")
+                row["at_2d"] = measure_f32(*m, what=f" [E, {width}]")
         del key, real
     data = randn(e, d)
 
@@ -588,6 +807,9 @@ FWD_PER_LAYER = {
     "wide": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_aggregate_by_src": 1},
     "wide_src": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_reverse_sum": 1},
     "layernorm_wide": {"take_rows": 2, "sigma_aggregate": 1, "sigma_aggregate_by_src": 1},
+    # compute_dtype="bfloat16": the same kernels' bf16 entries
+    "batchnorm_bf16": {"gate_front_bf16": 1, "gate_sigma_gather_bf16": 1,
+                       "sigma_reverse_sum_bf16": 1},
 }
 BWD_PER_LAYER = {
     # gate front's d_b1h / d_b2h, the epilog's d_values by src, the reverse
@@ -604,6 +826,8 @@ BWD_PER_LAYER = {
                  "segment_sum_by_dst": 2, "segment_sum_by_src": 1},
     "layernorm_wide": {"sigma_aggregate_bwd": 1, "sigma_aggregate_bwd_by_src": 1,
                        "segment_sum_by_dst": 1, "segment_sum_by_src": 1},
+    "batchnorm_bf16": {"gate_front_bwd_bf16": 1, "epilog_bwd_bf16": 1, "rev_bwd_bf16": 1,
+                       "segment_sum_by_dst_bf16": 2, "segment_sum_by_src_bf16": 2},
 }
 
 
@@ -612,25 +836,29 @@ def expected_launches(variant: str, remat, layers: int = LAYERS) -> dict:
     one training step of the ``layers``-deep model: the layers' kernels,
     the score head's two row gathers and, in a step, the segment sum of
     each. ``remat="layer"`` runs each layer's forward again inside the
-    backward; the score head is outside the checkpoints."""
+    backward; the score head is outside the checkpoints. A ``_bf16``
+    variant runs the bf16 entries throughout, the score head's too."""
     from gnnome_tpu_torch.ops.cuda_lib import KERNELS
 
     counts = dict.fromkeys(KERNELS, 0)
     fwd = layers * (2 if remat == "layer" else 1)
+    tail = "_bf16" if variant.endswith("_bf16") else ""
     for name, c in FWD_PER_LAYER[variant].items():
         counts[name] += fwd * c
-    counts["take_rows"] += SCORE_HEAD_GATHERS
+    counts["take_rows" + tail] += SCORE_HEAD_GATHERS
     if remat is not None:
         for name, c in BWD_PER_LAYER[variant].items():
             counts[name] += layers * c
-        counts["segment_sum_by_dst"] += 1
-        counts["segment_sum_by_src"] += 1
+        counts["segment_sum_by_dst" + tail] += 1
+        counts["segment_sum_by_src" + tail] += 1
     return counts
 
 
-def phase_training(torch, graph, seed: int) -> dict:
-    """The full-scale training step of each of ``TRAIN_RUNS``; returns the
-    launch counts of one step per run."""
+def phase_training(torch, graph, seed: int, runs=TRAIN_RUNS,
+                   compute_dtype: str = "float32") -> tuple[dict, dict]:
+    """The full-scale training step of each of ``runs`` under
+    ``compute_dtype``; returns the launch counts of one step per run and
+    the losses of its four steps."""
     from gnnome_tpu_torch.config import ModelConfig
     from gnnome_tpu_torch.data.synthetic import bench_features, bench_labels
     from gnnome_tpu_torch.models.model import init_model_params
@@ -642,16 +870,19 @@ def phase_training(torch, graph, seed: int) -> dict:
     pos_weight = torch.tensor(POS_WEIGHT, device=graph.device)
     log(f"  {graph.n_nodes} nodes, {graph.n_edges} edges, labels positive "
         f"{float(y[: graph.n_edges].mean()):.4f}, pos_weight {POS_WEIGHT}, Adam lr {LR}")
-    out = {}
-    for variant, remat in TRAIN_RUNS:
+    out, all_losses = {}, {}
+    bf16 = compute_dtype != "float32"
+    for variant, remat in runs:
         batch_norm, wide = VARIANTS[variant]
-        label = f"{variant}, remat={remat!r}"
+        launch_key = f"{variant}_bf16" if bf16 else variant
+        label = f"{launch_key}, remat={remat!r}"
         params = init_model_params(torch.Generator().manual_seed(seed), cfg, graph.device)
         opt = make_optimizer(params, LR)
 
         def step():
             loss, _ = train_step(params, opt, graph, e_feat, pe, y, pos_weight,
-                                 batch_norm=batch_norm, remat=remat, wide_gathers=wide)
+                                 batch_norm=batch_norm, remat=remat, wide_gathers=wide,
+                                 compute_dtype=compute_dtype)
             torch.cuda.synchronize()
             if not torch.isfinite(loss):
                 raise AssertionError(f"{label}: loss {float(loss)} is not finite")
@@ -670,24 +901,25 @@ def phase_training(torch, graph, seed: int) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
         log(f"  {label}: launches in one step: { {k: v for k, v in launches.items() if v} }")
-        if launches != expected_launches(variant, remat):
+        if launches != expected_launches(launch_key, remat):
             raise AssertionError(f"launch counts {launches}, expected "
-                                 f"{expected_launches(variant, remat)}")
+                                 f"{expected_launches(launch_key, remat)}")
         times.sort()
         log(f"  {label}: step ms (3 after a warm-up, host clock after synchronize): "
             f"{[round(t, 3) for t in times]}; median {times[1]:.3f}; "
             f"{graph.n_edges / (times[1] / 1e3):.0f} edges/s; peak device memory "
             f"{peak / 2**30:.3f} GiB; losses {[round(x, 5) for x in losses]}")
         profile_run(torch, step, f"step ({label})", iters=2)
-        out[(variant, remat)] = launches
+        out[(variant, remat)], all_losses[(variant, remat)] = launches, losses
         del params, opt
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return out, all_losses
 
 
 PORT_KERNELS = {  # device kernel name -> the wrapper(s) that launch it
     "gate_front_kernel": "gate_front", "moments_reduce_kernel": "gate_front",
+    "gate_front_bf16_kernel": "gate_front",
     "w3_split_kernel": "gate_front",
     "gate_sigma_gather_kernel": "gate_sigma_gather",
     "gate_sigma_aggregate_kernel": "gate_sigma_aggregate",
@@ -712,10 +944,12 @@ PORT_KERNELS = {  # device kernel name -> the wrapper(s) that launch it
 def kernel_group(name: str) -> str:
     base = re.search(r"\b(\w+_kernel)\b", name)
     base = base.group(1) if base else ""
-    if base == "segment_sum_kernel":  # template <VEC, ORDERED>: by_src is ordered
-        return "port: segment_sum_by_src" if "true>" in name else "port: segment_sum_by_dst"
-    if base in PORT_KERNELS:
-        return f"port: {PORT_KERNELS[base]}"
+    if base == "segment_sum_kernel":  # template <T, VEC, ORDERED>: by_src is ordered
+        tail = " (bf16)" if "bfloat16" in name else ""
+        return f"port: segment_sum_by_{'src' if 'true>' in name else 'dst'}{tail}"
+    if base in PORT_KERNELS:  # a bf16 instance names __nv_bfloat16 (or is gate_front_bf16)
+        bf16 = "bfloat16" in name or base == "gate_front_bf16_kernel"
+        return f"port: {PORT_KERNELS[base]}{' (bf16)' if bf16 else ''}"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "cuBLAS products"
     if "multi_tensor_apply" in name:
@@ -1178,6 +1412,143 @@ def phase_pipeline(torch, device="cuda") -> dict:
     return launches
 
 
+def phase_bf16(torch, seed: int, f32_losses: dict, device="cuda") -> tuple[list, dict]:
+    """compute_dtype="bfloat16" on the BatchNorm model with narrow gathers:
+    the bf16 entries against their plain versions at the main path's shapes
+    and on the most padded ClusterGCN piece; scoring with the shipped
+    weights through ``eval_step`` (launches, ms, peak, probabilities against
+    the f32 forward, two forwards alike bit for bit); the full-scale
+    training steps under ``"layer"`` and ``"none"`` beside phase 4's f32
+    losses; one ClusterGCN epoch under the default Config. Returns the
+    kernel rows and the launch counts by path."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.data.synthetic import bench_features, bench_labels, build_bench_graph
+    from gnnome_tpu_torch.decode.inference import load_model, score_graph
+    from gnnome_tpu_torch.train import loop
+
+    graph, _ = build_bench_graph(N_NODES, N_EDGES, seed=seed, device=device)
+    log(f"  local bench graph: {graph.n_nodes} nodes, {graph.n_edges} edges")
+    with torch.inference_mode():
+        rows = phase_parity_bf16(torch, graph, seed)
+        piece = piece_graph(seed, device)
+        log(f"  piece graph: {piece.n_nodes} / {piece.n_edges} real nodes / edges in "
+            f"{piece.n_nodes_padded} / {piece.n_edges_padded} rows")
+        for row, got in zip(rows, phase_parity_bf16(torch, piece, seed)):
+            row["piece"] = {k: got[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+        del piece
+    torch.cuda.empty_cache()
+    paths = {}
+
+    cfg = Config()
+    params = load_model(str(WEIGHTS), cfg, device)
+    e_feat, pe = bench_features(graph, seed, cfg.model.nb_pos_enc)
+    y = bench_labels(graph, seed)
+    pos_weight = torch.tensor(POS_WEIGHT, device=device)
+
+    def forward():
+        return loop.eval_step(params, graph, e_feat, pe, y, pos_weight,
+                              compute_dtype="bfloat16")[2]
+
+    log(f"  scoring, BatchNorm model, weights {WEIGHTS.relative_to(ROOT)} cast to bf16 "
+        "in the forward (eval_step, compute_dtype='bfloat16')")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits = forward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in one bf16 forward: { {k: v for k, v in launches.items() if v} }")
+    if launches != expected_launches("batchnorm_bf16", None):
+        raise AssertionError(f"launch counts {launches}, expected "
+                             f"{expected_launches('batchnorm_bf16', None)}")
+    paths["scoring_bf16"] = launches
+    if logits.dtype != torch.float32 or tuple(logits.shape) != (graph.n_edges_padded,) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"bf16 logits: {logits.dtype} {tuple(logits.shape)}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = forward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(again, logits):
+            raise AssertionError("a second bf16 forward gave other logits")
+    times.sort()
+    with torch.no_grad():
+        ref = score_graph(params, graph, e_feat, pe)
+    real = slice(0, graph.n_edges)
+    dprob = float((torch.sigmoid(logits[real]) - torch.sigmoid(ref[real])).abs().max())
+    log(f"  bf16 forward ms (3 runs, host clock after synchronize): "
+        f"{[round(t, 3) for t in times]}; median {times[1]:.3f}; logits of every forward "
+        f"equal bit for bit; peak device memory {peak / 2**30:.3f} GiB; max |prob bf16 - "
+        f"prob f32| {dprob:.4e}, max |logit difference| "
+        f"{float((logits[real] - ref[real]).abs().max()):.4e}")
+    profile_run(torch, forward, "bf16 forward")
+    del params, logits, again, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = (("batchnorm", "layer"), ("batchnorm", "none"))
+    training, losses = phase_training(torch, graph, seed, runs, "bfloat16")
+    for run in runs:
+        log(f"  batchnorm, remat={run[1]!r}: losses of the same 4 steps, bf16 "
+            f"{[round(x, 5) for x in losses[run]]}, f32 (phase 4) "
+            f"{[round(x, 5) for x in f32_losses[run]]}")
+        paths[f"train_step_batchnorm_bf16_remat_{run[1]}"] = training[run]
+    del graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["cluster_piece_step_batchnorm_bf16_remat_layer"] = phase_cluster_bf16(torch, seed,
+                                                                              device)
+    return rows, paths
+
+
+def phase_cluster_bf16(torch, seed: int, device="cuda") -> dict:
+    """One ClusterGCN training epoch of ``_epoch_pass`` under the default
+    Config with compute_dtype="bfloat16" on the local bench graph; returns
+    the launch counts of one piece step."""
+    from gnnome_tpu_torch.config import Config
+    from gnnome_tpu_torch.models.model import init_model_params
+    from gnnome_tpu_torch.train import loop
+
+    cfg = Config()
+    cfg.train.compute_dtype = "bfloat16"
+    train_fn, _ = loop.make_cluster_fns(cfg)
+    sample = bench_sample(torch, seed, device)
+    params = init_model_params(torch.Generator().manual_seed(seed), cfg.model, device)
+    opt = loop.make_optimizer(params, LR)
+    pos_weight = torch.tensor(POS_WEIGHT, device=device)
+    probe = SamplerProbe(train_fn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with StepProbe(torch, loop, "train_step") as steps:
+        t0 = time.perf_counter()
+        metrics = loop._epoch_pass([(0, sample)], params, opt, pos_weight, cfg, True, probe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = steps.ms()
+    if not math.isfinite(metrics["loss"]):
+        raise AssertionError(f"bf16 ClusterGCN epoch: loss {metrics['loss']} is not finite")
+    if steps.first != expected_launches("batchnorm_bf16", "layer"):
+        raise AssertionError(f"bf16 piece step launch counts {steps.first}, expected "
+                             f"{expected_launches('batchnorm_bf16', 'layer')}")
+    g = [p.graph for p in probe.pieces[-1]]
+    log(f"  bf16 ClusterGCN training epoch (default Config, compute_dtype='bfloat16'): "
+        f"{len(g)} pieces, real edges {min(x.n_edges for x in g)}-{max(x.n_edges for x in g)} "
+        f"padded to {g[0].n_edges_padded}; sampler host {probe.seconds[-1]:.4f} s; piece step "
+        f"ms (CUDA events) median {sorted(ms)[len(ms) // 2]:.3f}, min {min(ms):.3f}, max "
+        f"{max(ms):.3f}; wall {wall:.4f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; loss {metrics['loss']:.5f}; "
+        f"launches of a piece step as stated")
+    del params, opt, sample
+    gc.collect()
+    torch.cuda.empty_cache()
+    return steps.first
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1292,7 +1663,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 4: full-scale training steps (16 layers, D=256)")
-    training = phase_training(torch, graphs.pop("local"), args.seed)
+    training, f32_losses = phase_training(torch, graphs.pop("local"), args.seed)
 
     log("phase 5: end to end, reads to contigs")
     data = phase_end_to_end(torch, cfg, WEIGHTS, args.seed)
@@ -1309,12 +1680,17 @@ def main() -> int:
     log("phase 9: the pipeline: example.synthetic_example on the card")
     pipeline_launches = phase_pipeline(torch)
 
+    log("phase 10: bf16 compute (compute_dtype='bfloat16'), the BatchNorm model")
+    bf16_rows, bf16_paths = phase_bf16(torch, args.seed, f32_losses)
+    kernels += bf16_rows
+
     # the kernel table's launch counts: one full-scale step of the first
     # training path that runs the kernel; every path's count beside it
     paths = {**scoring, **{f"train_step_{v}_remat_{r}": c for (v, r), c in training.items()},
              **{f"genome_step_{v}_remat_layer": c for v, c in genome.items()},
-             **cluster, "synthetic_example": pipeline_launches}
-    steps = [training[run] for run in TRAIN_RUNS]
+             **cluster, "synthetic_example": pipeline_launches, **bf16_paths}
+    steps = [training[run] for run in TRAIN_RUNS] + \
+        [bf16_paths["train_step_batchnorm_bf16_remat_layer"]]
     for row in kernels:
         name = row["name"]
         row["launches"] = next((c[name] for c in steps if c[name]), 0)

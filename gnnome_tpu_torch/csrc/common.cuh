@@ -7,6 +7,7 @@
 // (0 = launched); the Python wrapper raises on anything else.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,64 +29,152 @@ __device__ __forceinline__ float bn_affine(float x, float scale, float bias) {
   return __fadd_rn(__fmul_rn(x, scale), bias);
 }
 
-// VEC consecutive floats; VEC == 4 uses one 16-byte access (the caller
-// guarantees 16-byte alignment: row width % 4 == 0 and aligned bases).
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+// Storage types. Every kernel reads and writes its [E, D] and [N, D] data
+// as T, float or __nv_bfloat16 (the bf16 entries); loads convert to f32,
+// all arithmetic runs in f32, and stores round to nearest
+// (__float2bfloat16_rn). Sums, moments and the affine stay f32 arrays.
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+// elements of T in one 16-byte access: 4 floats or 8 bf16
+template <typename T>
+constexpr int VEC16 = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// x as a store into T keeps it: rounded to bf16 and back for T = bf16
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (is_bf16<T>) {
+    return __bfloat162float(__float2bfloat16_rn(x));
   } else {
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) v[q] = p[q];
+    return x;
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (is_bf16<T>) {
+    return __float2bfloat16_rn(x);
   } else {
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) p[q] = v[q];
+    return x;
   }
 }
 
-// Streaming forms for [E, D] data that is read or written once and is far
-// larger than the L2 (ld.global.cs / st.global.cs: evict first), so it does
-// not push out the node tables that neighbouring edges share.
-template <int VEC>
-__device__ __forceinline__ void load_vec_cs(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
+// 8 bf16 packed in 16 bytes <-> 8 floats (element 0 in the low half). A
+// bf16 is the high half of the f32 with the same value.
+__device__ __forceinline__ void unpack8(const uint4& u, float* v) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) v[q] = __ldcs(p + q);
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_vec_cs(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
+}
+
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                    pack2(v[6], v[7]));
+}
+
+// VEC consecutive elements of T as floats. A multiple of 16 bytes (VEC a
+// multiple of 4 floats or 8 bf16) uses 16-byte accesses: the caller
+// guarantees 16-byte alignment (row bytes % 16 == 0 and aligned bases).
+// CS: streaming forms for [E, D] data that is read or written once and is
+// far larger than the L2 (ld.global.cs / st.global.cs: evict first), so it
+// does not push out the node tables that neighbouring edges share.
+template <int VEC, bool CS, typename T>
+__device__ __forceinline__ void load_as_f32(const T* p, float (&v)[VEC]) {
+  if constexpr (!is_bf16<T> && VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i) {
+      const float4* q = reinterpret_cast<const float4*>(p) + i;
+      const float4 t = CS ? __ldcs(q) : *q;
+      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
+    }
+  } else if constexpr (is_bf16<T> && VEC % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 8; ++i) {
+      const uint4* q = reinterpret_cast<const uint4*>(p) + i;
+      unpack8(CS ? __ldcs(q) : *q, v + 8 * i);
+    }
   } else {
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) __stcs(p + q, v[q]);
+    for (int q = 0; q < VEC; ++q) v[q] = to_f32(CS ? __ldcs(p + q) : p[q]);
   }
+}
+
+template <int VEC, bool CS, typename T>
+__device__ __forceinline__ void store_from_f32(T* p, const float (&v)[VEC]) {
+  if constexpr (!is_bf16<T> && VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i) {
+      float4* q = reinterpret_cast<float4*>(p) + i;
+      const float4 t = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      if constexpr (CS) {
+        __stcs(q, t);
+      } else {
+        *q = t;
+      }
+    }
+  } else if constexpr (is_bf16<T> && VEC % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 8; ++i) {
+      uint4* q = reinterpret_cast<uint4*>(p) + i;
+      const uint4 t = pack8(v + 8 * i);
+      if constexpr (CS) {
+        __stcs(q, t);
+      } else {
+        *q = t;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      if constexpr (CS) {
+        __stcs(p + q, from_f32<T>(v[q]));
+      } else {
+        p[q] = from_f32<T>(v[q]);
+      }
+    }
+  }
+}
+
+template <int VEC, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[VEC]) {
+  load_as_f32<VEC, false>(p, v);
+}
+
+template <int VEC, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
+  store_from_f32<VEC, false>(p, v);
+}
+
+template <int VEC, typename T>
+__device__ __forceinline__ void load_vec_cs(const T* p, float (&v)[VEC]) {
+  load_as_f32<VEC, true>(p, v);
+}
+
+template <int VEC, typename T>
+__device__ __forceinline__ void store_vec_cs(T* p, const float (&v)[VEC]) {
+  store_from_f32<VEC, true>(p, v);
 }
 
 // load_vec_cs where CS, else load_vec. The walks stream [E, D] inputs with
 // ld.global.cs where they also gather node-table rows (which the streamed
 // data would push out of the L2), and with plain loads where they do not
 // (the pregathered forms: 0-3% faster so on the H100, PERF.md section 6).
-template <bool CS, int VEC>
-__device__ __forceinline__ void load_stream(const float* p, float (&v)[VEC]) {
-  if constexpr (CS) {
-    load_vec_cs<VEC>(p, v);
-  } else {
-    load_vec<VEC>(p, v);
-  }
+template <bool CS, int VEC, typename T>
+__device__ __forceinline__ void load_stream(const T* p, float (&v)[VEC]) {
+  load_as_f32<VEC, CS>(p, v);
 }
 
 // Edge-balanced walks (csrc/epilog_bwd.cu, csrc/sigma_rows.cuh). A walker

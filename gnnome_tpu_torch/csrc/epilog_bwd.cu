@@ -23,7 +23,9 @@
 // and g_enew read (3.07 GB), three [E, D] outputs written (3.07 GB), the
 // g_sums (307 MB) and values (154 MB) tables, key and src (8 MB): about
 // 6.6 GB, 2.0 ms at 3.35 TB/s; with pregathered rows (1.02 GB) in place of
-// the values table, about 7.5 GB, 2.2 ms. One exp per element.
+// the values table, about 7.5 GB, 2.2 ms; the bf16 entry moves its [E, D]
+// data and values in half the bytes, about 3.4 GB, 1.0 ms. One exp per
+// element.
 //
 // Design: an edge-balanced walk, as the TPU kernel's fixed chunks of edges
 // (gnnome::edge_walker, csrc/common.cuh). A walker (a lane group of one
@@ -61,15 +63,20 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int R = 2;
 
 // GATHER: the value row of edge k is values[src[k]] (a node table), else
-// vals[k] (pregathered, read once). CH: 16-byte chunks of a row per lane.
-template <int VEC, int CH, bool GATHER>
+// vals[k] (pregathered, read once). CH: chunks of VEC elements of a row per
+// lane. T: the stored type of the [E, D] data, the values and the three
+// outputs (float, or bf16 for the bf16 entry: g_sums is rounded to bf16 as
+// it is loaded, as the JAX VJP casts the cotangent to the edge dtype, and
+// the outputs are rounded as they are stored); g_sums, affine and d_affine
+// are f32, and d_affine sums the unrounded f32 d_pre.
+template <typename T, int VEC, int CH, bool GATHER>
 __device__ __forceinline__ void epilog_bwd_walk(
-    const float* __restrict__ gate_raw, const float* __restrict__ e_new,
-    const float* __restrict__ g_enew, const float* __restrict__ g_sums,
-    const float* __restrict__ values, const float* __restrict__ affine,
+    const T* __restrict__ gate_raw, const T* __restrict__ e_new,
+    const T* __restrict__ g_enew, const float* __restrict__ g_sums,
+    const T* __restrict__ values, const float* __restrict__ affine,
     const int* __restrict__ key, const int* __restrict__ src,
-    float* __restrict__ d_gate_raw, float* __restrict__ d_e_in,
-    float* __restrict__ d_vals, float* __restrict__ partial, int64_t n_nodes,
+    T* __restrict__ d_gate_raw, T* __restrict__ d_e_in,
+    T* __restrict__ d_vals, float* __restrict__ partial, int64_t n_nodes,
     int64_t n_rows, int d, int lanes_log2) {
   constexpr bool CS = GATHER;  // streaming loads beside a table gather
   extern __shared__ float red[];  // [WARPS][2][d]
@@ -82,8 +89,8 @@ __device__ __forceinline__ void epilog_bwd_walk(
   __syncwarp();
 
   // one pass over the walker's tiles per CH * lanes chunks of the row (one
-  // pass for every D <= 512 at VEC = 4); `base` is alike on every lane of
-  // the warp
+  // pass for rows of up to 128 chunks: D <= 512 in f32, 1024 in bf16);
+  // `base` is alike on every lane of the warp
   for (int base = 0; base < per_row; base += w.lanes * CH) {
     bool has[CH];
     int col[CH];
@@ -164,6 +171,11 @@ __device__ __forceinline__ void epilog_bwd_walk(
               if (kr[r] < n_nodes) {
                 gnnome::load_vec<VEC>(g_sums + (int64_t)kr[r] * 2 * d + col[q], g1[r][q]);
                 gnnome::load_vec<VEC>(g_sums + (int64_t)kr[r] * 2 * d + d + col[q], g2[r][q]);
+#pragma unroll
+                for (int v = 0; v < VEC; ++v) {
+                  g1[r][q][v] = gnnome::round_to<T>(g1[r][q][v]);
+                  g2[r][q][v] = gnnome::round_to<T>(g2[r][q][v]);
+                }
               } else {
 #pragma unroll
                 for (int v = 0; v < VEC; ++v) g1[r][q][v] = g2[r][q][v] = 0.0f;
@@ -237,18 +249,18 @@ __device__ __forceinline__ void epilog_bwd_walk(
 
 // one device kernel name per entry, so a profile tells them apart
 #define EPILOG_BWD_KERNEL(NAME, GATHER)                                                 \
-  template <int VEC, int CH>                                                           \
+  template <typename T, int VEC, int CH>                                               \
   __global__ void __launch_bounds__(THREADS) NAME(                                     \
-      const float* __restrict__ gate_raw, const float* __restrict__ e_new,             \
-      const float* __restrict__ g_enew, const float* __restrict__ g_sums,              \
-      const float* __restrict__ values, const float* __restrict__ affine,              \
+      const T* __restrict__ gate_raw, const T* __restrict__ e_new,                     \
+      const T* __restrict__ g_enew, const float* __restrict__ g_sums,                  \
+      const T* __restrict__ values, const float* __restrict__ affine,                  \
       const int* __restrict__ key, const int* __restrict__ src,                        \
-      float* __restrict__ d_gate_raw, float* __restrict__ d_e_in,                      \
-      float* __restrict__ d_vals, float* __restrict__ partial, int64_t n_nodes,        \
+      T* __restrict__ d_gate_raw, T* __restrict__ d_e_in,                              \
+      T* __restrict__ d_vals, float* __restrict__ partial, int64_t n_nodes,            \
       int64_t n_rows, int d, int lanes_log2) {                                         \
-    epilog_bwd_walk<VEC, CH, GATHER>(gate_raw, e_new, g_enew, g_sums, values, affine,  \
-                                     key, src, d_gate_raw, d_e_in, d_vals, partial,    \
-                                     n_nodes, n_rows, d, lanes_log2);                  \
+    epilog_bwd_walk<T, VEC, CH, GATHER>(gate_raw, e_new, g_enew, g_sums, values,       \
+                                        affine, key, src, d_gate_raw, d_e_in, d_vals,  \
+                                        partial, n_nodes, n_rows, d, lanes_log2);      \
   }
 
 EPILOG_BWD_KERNEL(epilog_bwd_kernel, true)
@@ -260,15 +272,15 @@ __global__ void __launch_bounds__(256) affine_reduce_kernel(
   gnnome::reduce_partials(partial, d_affine, n_parts, 2 * (int64_t)d);
 }
 
-template <int VEC, int CH>
-int launch(const float* gate_raw, const float* e_new, const float* g_enew,
-           const float* g_sums, const float* values, const float* affine,
-           const int* key, const int* src, float* d_gate_raw, float* d_e_in,
-           float* d_vals, float* partial, float* d_affine, int64_t n_nodes,
+template <typename T, int VEC, int CH>
+int launch(const T* gate_raw, const T* e_new, const T* g_enew,
+           const float* g_sums, const T* values, const float* affine,
+           const int* key, const int* src, T* d_gate_raw, T* d_e_in,
+           T* d_vals, float* partial, float* d_affine, int64_t n_nodes,
            int64_t n_rows, int d, int max_parts, int lanes_log2, int device,
            cudaStream_t s) {
-  const auto kernel = src != nullptr ? epilog_bwd_kernel<VEC, CH>
-                                     : epilog_bwd_pregathered_kernel<VEC, CH>;
+  const auto kernel = src != nullptr ? epilog_bwd_kernel<T, VEC, CH>
+                                     : epilog_bwd_pregathered_kernel<T, VEC, CH>;
   const size_t smem = sizeof(float) * WARPS * 2 * d;
   cudaError_t err = gnnome::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -287,40 +299,57 @@ int launch(const float* gate_raw, const float* e_new, const float* g_enew,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const float* gate_raw, const float* e_new, const float* g_enew,
-             const float* g_sums, const float* values, const float* affine,
-             const int* key, const int* src, float* d_gate_raw, float* d_e_in,
-             float* d_vals, float* partial, float* d_affine, int64_t n_nodes,
-             int64_t n_rows, int d, int max_parts, int vec4, int device, void* stream) {
+template <typename T>
+int dispatch(const T* gate_raw, const T* e_new, const T* g_enew,
+             const float* g_sums, const T* values, const float* affine,
+             const int* key, const int* src, T* d_gate_raw, T* d_e_in,
+             T* d_vals, float* partial, float* d_affine, int64_t n_nodes,
+             int64_t n_rows, int d, int max_parts, int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (max_parts < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int V = gnnome::VEC16<T>;
   int lanes_log2 = 5, chunks = 1;
-  gnnome::lane_layout(vec4 ? d / 4 : d, &lanes_log2, &chunks);
-  const auto run = [&](auto vec) {
+  gnnome::lane_layout(vec ? d / V : d, &lanes_log2, &chunks);
+  const auto run = [&](auto v) {
     return gnnome::with_chunks(chunks, [&](auto ch) {
-      return launch<decltype(vec)::value, decltype(ch)::value>(
+      return launch<T, decltype(v)::value, decltype(ch)::value>(
           gate_raw, e_new, g_enew, g_sums, values, affine, key, src, d_gate_raw, d_e_in,
           d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, lanes_log2, device, s);
     });
   };
-  return vec4 ? run(gnnome::Int<4>{}) : run(gnnome::Int<1>{});
+  return vec ? run(gnnome::Int<V>{}) : run(gnnome::Int<1>{});
 }
 
 }  // namespace
 
 // key: by_dst.key (canonical dst ids, PAD_SEGMENT on padded edges);
-// partial: scratch f32 [max_parts, 2, d], one row per block of the walk.
+// partial: scratch f32 [max_parts, 2, d], one row per block of the walk;
+// vec: 16-byte accesses (rows of a multiple of 16 bytes, aligned bases).
 GNNOME_API int gnnome_epilog_bwd_f32(
     const float* gate_raw, const float* e_new, const float* g_enew,
     const float* g_sums, const float* values, const float* affine, const int* key,
     const int* src, float* d_gate_raw, float* d_e_in, float* d_vals, float* partial,
-    float* d_affine, int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec4,
+    float* d_affine, int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec,
     int device, void* stream) {
   if (src == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(gate_raw, e_new, g_enew, g_sums, values, affine, key, src, d_gate_raw,
-                  d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, vec4,
+                  d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, vec,
+                  device, stream);
+}
+
+// gate_raw, e_new, g_enew, values and the three [E, D] outputs bf16;
+// g_sums, affine, partial and d_affine f32
+GNNOME_API int gnnome_epilog_bwd_bf16(
+    const gnnome::bf16* gate_raw, const gnnome::bf16* e_new, const gnnome::bf16* g_enew,
+    const float* g_sums, const gnnome::bf16* values, const float* affine, const int* key,
+    const int* src, gnnome::bf16* d_gate_raw, gnnome::bf16* d_e_in, gnnome::bf16* d_vals,
+    float* partial, float* d_affine, int64_t n_nodes, int64_t n_rows, int d, int max_parts,
+    int vec, int device, void* stream) {
+  if (src == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(gate_raw, e_new, g_enew, g_sums, values, affine, key, src, d_gate_raw,
+                  d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, vec,
                   device, stream);
 }
 
@@ -329,9 +358,9 @@ GNNOME_API int gnnome_epilog_bwd_pregathered_f32(
     const float* gate_raw, const float* e_new, const float* g_enew,
     const float* g_sums, const float* vals, const float* affine, const int* key,
     float* d_gate_raw, float* d_e_in, float* d_vals, float* partial, float* d_affine,
-    int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec4, int device,
+    int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec, int device,
     void* stream) {
-  return dispatch(gate_raw, e_new, g_enew, g_sums, vals, affine, key, nullptr, d_gate_raw,
-                  d_e_in, d_vals, partial, d_affine, n_nodes, n_rows, d, max_parts, vec4,
-                  device, stream);
+  return dispatch(gate_raw, e_new, g_enew, g_sums, vals, affine, key,
+                  static_cast<const int*>(nullptr), d_gate_raw, d_e_in, d_vals, partial,
+                  d_affine, n_nodes, n_rows, d, max_parts, vec, device, stream);
 }

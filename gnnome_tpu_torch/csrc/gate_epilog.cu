@@ -18,12 +18,15 @@
 // read (2.05 GB), e_new written (1.02 GB), the sums written (307 MB), ids and
 // offsets (5 MB), and the values table (154 MB): about 3.54 GB, 1.06 ms at
 // 3.35 TB/s; with pregathered rows (1.02 GB) in its place about 4.40 GB,
-// 1.31 ms. The arithmetic (one exp per element) is far below the line.
+// 1.31 ms; the bf16 entry reads and writes its [E, D] and [N, D] data in
+// half the bytes, about 1.92 GB, 0.57 ms. The arithmetic (one exp per
+// element) is far below the line.
 //
 // Design: one warp per destination row. Canonical order is dst-sorted, so
 // the row's edges are the contiguous range offsets[v]:offsets[v+1]; the
 // warp walks them in order and accumulates in f32 registers, each lane
-// owning 4 consecutive columns (16-byte accesses) per 128-column slice.
+// owning one 16-byte access of consecutive columns per slice (4 f32 of
+// 128, 8 bf16 of 256).
 // Every sum is a fixed-order CSR row reduction: deterministic, no atomics.
 // Padded edges (past offsets[N]) belong to no row; a second, elementwise
 // kernel writes their e_new so the whole output is defined.
@@ -31,13 +34,16 @@
 
 namespace {
 
-// GATHER: the value row of edge k is values[src[k]], else vals[k]
-template <int VEC, bool GATHER>
+// GATHER: the value row of edge k is values[src[k]], else vals[k]. T: the
+// stored type of gate, e_in, values and e_new (float, or bf16 for the bf16
+// entries: e_new is rounded as it is stored and σ is taken of the rounded
+// value, as the JAX composition takes it of the bf16 e_new).
+template <typename T, int VEC, bool GATHER>
 __device__ __forceinline__ void gate_epilog_rows(
-    const float* __restrict__ gate, const float* __restrict__ e_in,
-    const float* __restrict__ values, const float* __restrict__ affine,
+    const T* __restrict__ gate, const T* __restrict__ e_in,
+    const T* __restrict__ values, const float* __restrict__ affine,
     const int* __restrict__ offsets, const int* __restrict__ src,
-    float* __restrict__ sums, float* __restrict__ e_new, int64_t n_nodes,
+    float* __restrict__ sums, T* __restrict__ e_new, int64_t n_nodes,
     int d) {
   const int lane = threadIdx.x & 31;
   const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
@@ -59,7 +65,8 @@ __device__ __forceinline__ void gate_epilog_rows(
         gnnome::load_vec<VEC>(values + so + c, val);
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
-          en[q] = fmaxf(gnnome::bn_affine(g[q], sc[q], bi[q]), 0.0f) + x[q];
+          en[q] = gnnome::round_to<T>(
+              fmaxf(gnnome::bn_affine(g[q], sc[q], bi[q]), 0.0f) + x[q]);
           const float sg = gnnome::sigmoid(en[q]);
           acc1[q] += sg * val[q];
           acc2[q] += sg;
@@ -73,25 +80,25 @@ __device__ __forceinline__ void gate_epilog_rows(
 }
 
 #define GATE_EPILOG_KERNEL(NAME, GATHER)                                               \
-  template <int VEC>                                                                   \
+  template <typename T, int VEC>                                                       \
   __global__ void __launch_bounds__(128) NAME(                                         \
-      const float* __restrict__ gate, const float* __restrict__ e_in,                  \
-      const float* __restrict__ values, const float* __restrict__ affine,              \
+      const T* __restrict__ gate, const T* __restrict__ e_in,                          \
+      const T* __restrict__ values, const float* __restrict__ affine,                  \
       const int* __restrict__ offsets, const int* __restrict__ src,                    \
-      float* __restrict__ sums, float* __restrict__ e_new, int64_t n_nodes, int d) {   \
-    gate_epilog_rows<VEC, GATHER>(gate, e_in, values, affine, offsets, src, sums,      \
-                                  e_new, n_nodes, d);                                  \
+      float* __restrict__ sums, T* __restrict__ e_new, int64_t n_nodes, int d) {       \
+    gate_epilog_rows<T, VEC, GATHER>(gate, e_in, values, affine, offsets, src, sums,   \
+                                     e_new, n_nodes, d);                               \
   }
 
 GATE_EPILOG_KERNEL(gate_sigma_gather_kernel, true)
 GATE_EPILOG_KERNEL(gate_sigma_aggregate_kernel, false)
 
 // e_new for the padded edges [offsets[n_nodes], n_rows), which no row owns.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(256) gate_epilog_tail_kernel(
-    const float* __restrict__ gate, const float* __restrict__ e_in,
+    const T* __restrict__ gate, const T* __restrict__ e_in,
     const float* __restrict__ affine, const int* __restrict__ offsets,
-    float* __restrict__ e_new, int64_t n_nodes, int64_t n_rows, int d) {
+    T* __restrict__ e_new, int64_t n_nodes, int64_t n_rows, int d) {
   const int64_t start = offsets[n_nodes];
   const int per_row = d / VEC;
   const int64_t total = (n_rows - start) * per_row;
@@ -112,60 +119,73 @@ __global__ void __launch_bounds__(256) gate_epilog_tail_kernel(
   }
 }
 
-template <int VEC>
-int launch(const float* gate, const float* e_in, const float* values,
+template <typename T, int VEC>
+int launch(const T* gate, const T* e_in, const T* values,
            const float* affine, const int* offsets, const int* src,
-           float* sums, float* e_new, int64_t n_nodes, int64_t n_rows, int d,
+           float* sums, T* e_new, int64_t n_nodes, int64_t n_rows, int d,
            cudaStream_t s) {
   const int threads = 128;  // 4 rows per block
   const unsigned grid = gnnome::grid_for(n_nodes * 32, threads);
   if (src != nullptr) {
-    gate_sigma_gather_kernel<VEC><<<grid, threads, 0, s>>>(
+    gate_sigma_gather_kernel<T, VEC><<<grid, threads, 0, s>>>(
         gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes, d);
   } else {
-    gate_sigma_aggregate_kernel<VEC><<<grid, threads, 0, s>>>(
+    gate_sigma_aggregate_kernel<T, VEC><<<grid, threads, 0, s>>>(
         gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes, d);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // the tail is usually empty: a small fixed grid, each thread reads the
   // start offset on the device and strides over what is there
-  gate_epilog_tail_kernel<VEC><<<264, 256, 0, s>>>(gate, e_in, affine, offsets,
-                                                   e_new, n_nodes, n_rows, d);
+  gate_epilog_tail_kernel<T, VEC><<<264, 256, 0, s>>>(gate, e_in, affine, offsets,
+                                                      e_new, n_nodes, n_rows, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const float* gate, const float* e_in, const float* values,
+template <typename T>
+int dispatch(const T* gate, const T* e_in, const T* values,
              const float* affine, const int* offsets, const int* src, float* sums,
-             float* e_new, int64_t n_nodes, int64_t n_rows, int d, int vec4,
+             T* e_new, int64_t n_nodes, int64_t n_rows, int d, int vec,
              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (d == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec4 ? launch<4>(gate, e_in, values, affine, offsets, src, sums, e_new,
-                          n_nodes, n_rows, d, s)
-              : launch<1>(gate, e_in, values, affine, offsets, src, sums, e_new,
-                          n_nodes, n_rows, d, s);
+  return vec ? launch<T, gnnome::VEC16<T>>(gate, e_in, values, affine, offsets, src, sums,
+                                           e_new, n_nodes, n_rows, d, s)
+             : launch<T, 1>(gate, e_in, values, affine, offsets, src, sums, e_new,
+                            n_nodes, n_rows, d, s);
 }
 
 }  // namespace
 
+// vec: 16-byte accesses (rows of a multiple of 16 bytes, aligned bases)
 GNNOME_API int gnnome_gate_sigma_gather_f32(
     const float* gate, const float* e_in, const float* values,
     const float* affine, const int* offsets, const int* src, float* sums,
-    float* e_new, int64_t n_nodes, int64_t n_rows, int d, int vec4,
+    float* e_new, int64_t n_nodes, int64_t n_rows, int d, int vec,
     int device, void* stream) {
   if (src == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes,
-                  n_rows, d, vec4, device, stream);
+                  n_rows, d, vec, device, stream);
+}
+
+// gate, e_in, values, e_new bf16; affine and sums f32
+GNNOME_API int gnnome_gate_sigma_gather_bf16(
+    const gnnome::bf16* gate, const gnnome::bf16* e_in, const gnnome::bf16* values,
+    const float* affine, const int* offsets, const int* src, float* sums,
+    gnnome::bf16* e_new, int64_t n_nodes, int64_t n_rows, int d, int vec,
+    int device, void* stream) {
+  if (src == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(gate, e_in, values, affine, offsets, src, sums, e_new, n_nodes,
+                  n_rows, d, vec, device, stream);
 }
 
 // vals: [n_rows, d], one pregathered value row per canonical edge
 GNNOME_API int gnnome_gate_sigma_aggregate_f32(
     const float* gate, const float* e_in, const float* vals, const float* affine,
     const int* offsets, float* sums, float* e_new, int64_t n_nodes, int64_t n_rows,
-    int d, int vec4, int device, void* stream) {
-  return dispatch(gate, e_in, vals, affine, offsets, nullptr, sums, e_new, n_nodes,
-                  n_rows, d, vec4, device, stream);
+    int d, int vec, int device, void* stream) {
+  return dispatch(gate, e_in, vals, affine, offsets, static_cast<const int*>(nullptr),
+                  sums, e_new, n_nodes, n_rows, d, vec, device, stream);
 }

@@ -553,6 +553,272 @@ cudaError_t launch_front(const float* b1h, const float* b2h, const float* e,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 entry (compute_dtype="bfloat16"): e, W3, b3, the node tables and
+// the gate are bf16, the moments f32. It computes what the TPU kernel
+// computes in bf16 (gnnome_tpu/ops/spmm_pallas.py:2619-2655):
+//   proj = bf16(e . W3)            the product summed in f32, rounded once
+//   pb   = bf16(proj + b3)         the bias added as bf16 arithmetic does
+//   gate = bf16((pb + b1h[src]) + b2h[dst])   the endpoint rows in f32
+//   mom  = [sum gate || sum gate^2] over real rows, of the ROUNDED gate, in f32.
+// A product of two bf16 values is exact in f32, so one bf16 tensor-core
+// product with an f32 accumulator (mma.sync.m16n8k16) computes e . W3 as
+// JAX does, up to the order of the sums; no split is needed.
+//
+// Bound on the H100: bytes. At E = 1M, D = 256: e and gate 512 MB each, the
+// two node tables 77 MB each, ids 8 MB: about 1.19 GB, 0.355 ms at
+// 3.35 TB/s; e . W3 is 131 GFLOP, 0.13 ms at the dense bf16 rate.
+//
+// Design (simple first): a block owns 128 output columns (gridDim.y blocks
+// cover d) and walks 64-edge row tiles, blockIdx-strided; its W3 slice
+// stays in shared memory for the whole walk. Per tile: cp.async brings the
+// e tile to shared memory, eight warps (4 row groups of 16 x 2 column
+// halves of 64) run mma.sync on ldmatrix fragments, the product is rounded
+// to bf16 into shared memory, and each half-warp finishes a row: gathers
+// the endpoint rows (16 bytes a lane), adds, stores the gate row and adds
+// real rows into the moments it keeps in registers. Two blocks share an SM,
+// so one block's loads and epilogue overlap the other's products. Moments
+// leave as one partial row per block, summed in a fixed order
+// (moments_reduce_kernel): deterministic, no float atomics.
+namespace bf {
+
+using gnnome::bf16;
+
+constexpr int BM = 64;     // edges per row tile
+constexpr int BN = 128;    // output columns per block
+constexpr int WARPS = 8;   // 4 row groups of 16 rows x 2 column halves of 64
+constexpr int THREADS = WARPS * 32;
+constexpr int PAD = 8;     // bf16 of padding per shared row: ldmatrix rows on distinct banks
+constexpr int W_LD = BN + PAD;  // row stride of the W3 slice and of the product tile
+
+// K rows of the W3 slice: d padded to the MMA's k16
+__host__ __device__ inline int k_pad(int d) { return (d + 15) / 16 * 16; }
+
+// the W3 slice [kp][W_LD], then the e tile [BM][kp + PAD], whose space the
+// product tile [BM][W_LD] and the moments' reduction [WARPS][2][BN] f32 reuse
+inline size_t smem_bytes(int d) {
+  const int kp = k_pad(d);
+  size_t tile = static_cast<size_t>(BM) * (kp + PAD) * sizeof(bf16);
+  const size_t ctile = static_cast<size_t>(BM) * W_LD * sizeof(bf16);
+  const size_t red = static_cast<size_t>(WARPS) * 2 * BN * sizeof(float);
+  if (tile < ctile) tile = ctile;
+  if (tile < red) tile = red;
+  return static_cast<size_t>(kp) * W_LD * sizeof(bf16) + tile;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// d += A . B: A [16, 16] bf16 (row-major fragment), B [16, 8] bf16, f32 d
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// VEC = 8: d % 8 == 0 and 16-byte aligned rows (cp.async of the e tile,
+// 16-byte epilogue accesses); VEC = 1: any d, element by element.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
+    const bf16* __restrict__ b1h, const bf16* __restrict__ b2h, const bf16* __restrict__ e,
+    const bf16* __restrict__ w3, const bf16* __restrict__ b3, const int* __restrict__ src,
+    const int* __restrict__ dst, bf16* __restrict__ gate, float* __restrict__ partial,
+    int n_rows, int n_real, int d) {
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  const int kp = k_pad(d);
+  const int e_ld = kp + PAD;
+  bf16* ws = reinterpret_cast<bf16*>(smem_bf16);  // W3[:, col0 : col0 + BN], [kp][W_LD]
+  bf16* es = ws + kp * W_LD;                     // the e tile, then the product tile
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int col0 = blockIdx.y * BN;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+
+  // the W3 slice, zeros past d (rows k >= d, columns >= d)
+  for (int i = tid; i < kp * (BN / 8); i += THREADS) {
+    const int k = i / (BN / 8), n8 = (i % (BN / 8)) * 8;
+    bf16* p = ws + k * W_LD + n8;
+    const int col = col0 + n8;
+    if constexpr (VEC == 8) {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (k < d && col < d) u = *reinterpret_cast<const uint4*>(w3 + static_cast<int64_t>(k) * d + col);
+      *reinterpret_cast<uint4*>(p) = u;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        p[q] = k < d && col + q < d ? w3[static_cast<int64_t>(k) * d + col + q] : zero;
+    }
+  }
+
+  // the epilogue: this lane's 8 columns of the block (a half-warp covers
+  // them all), their bias, and the moments of real rows
+  const int cl = (lane & 15) * 8;
+  const int c = col0 + cl;
+  float bias[8], m0[8], m1[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    bias[q] = c + q < d ? gnnome::to_f32(b3[c + q]) : 0.0f;
+    m0[q] = m1[q] = 0.0f;
+  }
+  // ldmatrix addresses: A matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) of the
+  // warp's 16 rows; B (transposed) matrices (k 0-7 | 8-15) x (n 0-7 | 8-15)
+  const int wr = warp & 3, wc = warp >> 2;
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+  const bf16* a_base = es + (wr * 16 + lr) * e_ld + lc;
+  const bf16* b_base = ws + lr * W_LD + wc * 64 + lc;
+  const int g = lane >> 2, t = lane & 3;  // accumulator rows g, g + 8; columns 8j + 2t, + 1
+
+  const int n_tiles = (n_rows + BM - 1) / BM;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * BM;
+    __syncthreads();  // the W3 slice is in; the last tile's epilogue is done with es
+    for (int i = tid; i < BM * (kp / 8); i += THREADS) {
+      const int r = i / (kp / 8), k8 = (i % (kp / 8)) * 8;
+      bf16* p = es + r * e_ld + k8;
+      const int row = row0 + r;
+      if constexpr (VEC == 8) {
+        const bool in = row < n_rows && k8 < d;
+        cp_async16(p, in ? e + static_cast<int64_t>(row) * d + k8 : e, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          p[q] = row < n_rows && k8 + q < d ? e[static_cast<int64_t>(row) * d + k8 + q] : zero;
+      }
+    }
+    if constexpr (VEC == 8) cp_async_wait_all();
+    __syncthreads();
+
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, a_base + k0);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, b_base + k0 * W_LD + j * 8);
+        mma_16816(acc[j], a, b[0], b[1]);
+        mma_16816(acc[j + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with the e tile: the product tile takes its space
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = wc * 64 + j * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(es + (wr * 16 + g) * W_LD + col) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(es + (wr * 16 + g + 8) * W_LD + col) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+    }
+    __syncthreads();
+
+    // a half-warp per row: two rows per warp at a time
+    for (int r = warp * 2 + (lane >> 4); r < BM; r += 2 * WARPS) {
+      const int row = row0 + r;
+      if (row >= n_rows) break;
+      float p[8], x1[8] = {}, x2[8] = {}, gv[8];
+      gnnome::load_vec<8>(es + r * W_LD + cl, p);
+      const int64_t s_row = static_cast<int64_t>(src[row]) * d;
+      const int64_t d_row = static_cast<int64_t>(dst[row]) * d;
+      if constexpr (VEC == 8) {
+        if (c < d) {
+          gnnome::load_vec<8>(b1h + s_row + c, x1);
+          gnnome::load_vec<8>(b2h + d_row + c, x2);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          x1[q] = c + q < d ? gnnome::to_f32(b1h[s_row + c + q]) : 0.0f;
+          x2[q] = c + q < d ? gnnome::to_f32(b2h[d_row + c + q]) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float pb = gnnome::round_to<bf16>(p[q] + bias[q]);
+        gv[q] = gnnome::round_to<bf16>((pb + x1[q]) + x2[q]);
+      }
+      bf16* pg = gate + static_cast<int64_t>(row) * d + c;
+      if constexpr (VEC == 8) {
+        if (c < d) gnnome::store_vec_cs<8>(pg, gv);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (c + q < d) __stcs(pg + q, __float2bfloat16_rn(gv[q]));
+        }
+      }
+      if (row < n_real) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          m0[q] += gv[q];
+          m1[q] += gv[q] * gv[q];
+        }
+      }
+    }
+  }
+
+  // lanes l and l + 16 hold the same columns; then the warps' sums meet in
+  // shared memory, red[warp][stat][BN], and leave as this block's partial row
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    m0[q] += __shfl_xor_sync(0xffffffffu, m0[q], 16);
+    m1[q] += __shfl_xor_sync(0xffffffffu, m1[q], 16);
+  }
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(es);
+  if (lane < 16) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      red[(warp * 2) * BN + cl + q] = m0[q];
+      red[(warp * 2 + 1) * BN + cl + q] = m1[q];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * BN; i += THREADS) {
+    const int stat = i / BN, col = i % BN;
+    float sum = 0.0f;
+    for (int w = 0; w < WARPS; ++w) sum += red[(w * 2 + stat) * BN + col];
+    if (col0 + col < d) partial[(static_cast<int64_t>(blockIdx.x) * 2 + stat) * d + col0 + col] = sum;
+  }
+}
+
+template <int VEC>
+cudaError_t launch(const bf16* b1h, const bf16* b2h, const bf16* e, const bf16* w3,
+                   const bf16* b3, const int* src, const int* dst, bf16* gate,
+                   float* partial, int n_rows, int n_real, int d, int n_parts,
+                   cudaStream_t s) {
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = gnnome::allow_smem(gate_front_bf16_kernel<VEC>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_parts, (d + BN - 1) / BN);
+  gate_front_bf16_kernel<VEC><<<grid, THREADS, smem, s>>>(b1h, b2h, e, w3, b3, src, dst,
+                                                          gate, partial, n_rows, n_real, d);
+  return cudaGetLastError();
+}
+
+}  // namespace bf
+
 }  // namespace
 
 // partial: scratch f32 [n_parts, 2, d]; n_parts blocks walk the 128-row
@@ -582,6 +848,32 @@ GNNOME_API int gnnome_gate_front_f32(
                                real, d, n_ks, n_parts, s)
              : launch_front<1>(b1h, b2h, e, w_hi, w_lo, b3, src, dst, gate, partial, rows,
                                real, d, n_ks, n_parts, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moments_reduce_kernel<<<(2 * d + 31) / 32, 256, 0, s>>>(partial, mom, n_parts, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 entry: b1h, b2h, e, w3, b3 and gate bf16; partial (scratch f32
+// [n_parts, 2, d]) and mom f32. n_parts blocks of each 128-column block
+// walk the 64-row tiles. d up to 512 (the W3 slice stays in shared memory).
+// vec: d % 8 == 0 and the row tensors' bases 16-byte aligned.
+GNNOME_API int gnnome_gate_front_bf16(
+    const gnnome::bf16* b1h, const gnnome::bf16* b2h, const gnnome::bf16* e,
+    const gnnome::bf16* w3, const gnnome::bf16* b3, const int* src, const int* dst,
+    gnnome::bf16* gate, float* partial, float* mom, int64_t n_rows, int64_t n_real, int d,
+    int n_parts, int vec, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_parts < 1 || d < 1 || n_rows > (int64_t{1} << 31) - 2 * bf::BM ||
+      bf::smem_bytes(d) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = static_cast<int>(n_rows);
+  const int real = static_cast<int>(n_real < n_rows ? n_real : n_rows);
+  err = vec ? bf::launch<8>(b1h, b2h, e, w3, b3, src, dst, gate, partial, rows, real, d,
+                            n_parts, s)
+            : bf::launch<1>(b1h, b2h, e, w3, b3, src, dst, gate, partial, rows, real, d,
+                            n_parts, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   moments_reduce_kernel<<<(2 * d + 31) / 32, 256, 0, s>>>(partial, mom, n_parts, d);
   return static_cast<int>(cudaGetLastError());

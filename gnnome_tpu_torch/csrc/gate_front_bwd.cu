@@ -15,12 +15,12 @@
 //
 // Bound on the H100: bytes. At E = 1M, D = 256: d_gate and gate read
 // (2.05 GB), d_total written (1.02 GB): about 3.07 GB, 0.92 ms at
-// 3.35 TB/s. Three flops per element.
+// 3.35 TB/s (bf16: half, 0.46 ms). Three flops per element.
 //
 // Design: each block walks a fixed, blockIdx-strided set of 64-row tiles;
-// its 8 warps take the rows of a tile in turn, each lane 4 consecutive
-// columns (16-byte accesses) per 128-column slice, and keep column sums in
-// registers. The warps' sums meet in shared memory and leave the block as
+// its 8 warps take the rows of a tile in turn, each lane one 16-byte
+// access of consecutive columns per slice (4 f32 of 128, 8 bf16 of 256),
+// and keep column sums in registers. The warps' sums meet in shared memory and leave the block as
 // one partial row; a second kernel adds the partials in a fixed order.
 // Deterministic, no float atomics (the TPU kernel carried the sum across
 // its sequential grid; CUDA blocks run in no order).
@@ -32,10 +32,13 @@ constexpr int ROWS = 64;    // rows per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 
-template <int VEC>
+// T: the stored type of d_gate, gate and d_total (float, or bf16 for the
+// bf16 entry: d_total is rounded once, as it is stored; d_bias3 sums the
+// unrounded f32 values, as the JAX VJP sums d_total32)
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS) gate_front_bwd_kernel(
-    const float* __restrict__ d_gate, const float* __restrict__ gate,
-    const float* __restrict__ d_mom, float* __restrict__ d_total,
+    const T* __restrict__ d_gate, const T* __restrict__ gate,
+    const float* __restrict__ d_mom, T* __restrict__ d_total,
     float* __restrict__ partial, int64_t n_rows, int64_t n_real, int d) {
   extern __shared__ float red[];  // [WARPS][d]
   const int lane = threadIdx.x & 31;
@@ -79,14 +82,14 @@ __global__ void __launch_bounds__(256) bias3_reduce_kernel(
   gnnome::reduce_partials(partial, d_bias3, n_parts, d);
 }
 
-template <int VEC>
-int launch(const float* d_gate, const float* gate, const float* d_mom,
-           float* d_total, float* partial, float* d_bias3, int64_t n_rows,
+template <typename T, int VEC>
+int launch(const T* d_gate, const T* gate, const float* d_mom,
+           T* d_total, float* partial, float* d_bias3, int64_t n_rows,
            int64_t n_real, int d, int n_parts, cudaStream_t s) {
   const size_t smem = sizeof(float) * WARPS * d;
-  cudaError_t err = gnnome::allow_smem(gate_front_bwd_kernel<VEC>, smem);
+  cudaError_t err = gnnome::allow_smem(gate_front_bwd_kernel<T, VEC>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gate_front_bwd_kernel<VEC><<<n_parts, THREADS, smem, s>>>(
+  gate_front_bwd_kernel<T, VEC><<<n_parts, THREADS, smem, s>>>(
       d_gate, gate, d_mom, d_total, partial, n_rows, n_real, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -94,19 +97,37 @@ int launch(const float* d_gate, const float* gate, const float* d_mom,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// partial: scratch f32 [n_parts, d]; n_parts blocks walk the row tiles.
-GNNOME_API int gnnome_gate_front_bwd_f32(
-    const float* d_gate, const float* gate, const float* d_mom, float* d_total,
-    float* partial, float* d_bias3, int64_t n_rows, int64_t n_real, int d,
-    int n_parts, int vec4, int device, void* stream) {
+template <typename T>
+int dispatch(const T* d_gate, const T* gate, const float* d_mom, T* d_total,
+             float* partial, float* d_bias3, int64_t n_rows, int64_t n_real, int d,
+             int n_parts, int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_parts < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec4 ? launch<4>(d_gate, gate, d_mom, d_total, partial, d_bias3, n_rows,
-                          n_real, d, n_parts, s)
-              : launch<1>(d_gate, gate, d_mom, d_total, partial, d_bias3, n_rows,
-                          n_real, d, n_parts, s);
+  return vec ? launch<T, gnnome::VEC16<T>>(d_gate, gate, d_mom, d_total, partial, d_bias3,
+                                           n_rows, n_real, d, n_parts, s)
+             : launch<T, 1>(d_gate, gate, d_mom, d_total, partial, d_bias3, n_rows,
+                            n_real, d, n_parts, s);
+}
+
+}  // namespace
+
+// partial: scratch f32 [n_parts, d]; n_parts blocks walk the row tiles.
+// vec: 16-byte accesses (rows of a multiple of 16 bytes, aligned bases).
+GNNOME_API int gnnome_gate_front_bwd_f32(
+    const float* d_gate, const float* gate, const float* d_mom, float* d_total,
+    float* partial, float* d_bias3, int64_t n_rows, int64_t n_real, int d,
+    int n_parts, int vec, int device, void* stream) {
+  return dispatch(d_gate, gate, d_mom, d_total, partial, d_bias3, n_rows, n_real, d,
+                  n_parts, vec, device, stream);
+}
+
+// d_gate, gate, d_total bf16; d_mom, partial, d_bias3 f32
+GNNOME_API int gnnome_gate_front_bwd_bf16(
+    const gnnome::bf16* d_gate, const gnnome::bf16* gate, const float* d_mom,
+    gnnome::bf16* d_total, float* partial, float* d_bias3, int64_t n_rows, int64_t n_real,
+    int d, int n_parts, int vec, int device, void* stream) {
+  return dispatch(d_gate, gate, d_mom, d_total, partial, d_bias3, n_rows, n_real, d,
+                  n_parts, vec, device, stream);
 }

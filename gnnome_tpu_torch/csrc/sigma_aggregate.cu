@@ -54,8 +54,8 @@ constexpr int64_t MIN_SPAN = 32;  // positions a backward walker takes at least
       const float* __restrict__ e, const float* __restrict__ values,                  \
       const int* __restrict__ offsets, const int* __restrict__ order,                 \
       const int* __restrict__ ids, float* __restrict__ sums, int64_t n_nodes, int d) { \
-    gnnome::sigma_sum_rows<VEC, ORDERED, VAL>(e, values, offsets, order, ids, sums,   \
-                                              n_nodes, d);                            \
+    gnnome::sigma_sum_rows<float, VEC, ORDERED, VAL>(e, values, offsets, order, ids,    \
+                                                     sums, n_nodes, d);               \
   }
 
 #define SIGMA_AGGREGATE_BWD_KERNEL(NAME, ORDERED, VAL)                                 \
@@ -66,7 +66,7 @@ constexpr int64_t MIN_SPAN = 32;  // positions a backward walker takes at least
       const int* __restrict__ order, const int* __restrict__ ids,                      \
       float* __restrict__ d_e, float* __restrict__ d_v, int64_t n_nodes,               \
       int64_t n_rows, int d, int lanes_log2) {                                         \
-    gnnome::sigma_bwd_walk<VEC, CH, ORDERED, VAL, false>(                              \
+    gnnome::sigma_bwd_walk<float, VEC, CH, ORDERED, VAL, false>(                       \
         e, g_sums, values, seg, order, ids, d_e, d_v, n_nodes, n_rows, d, lanes_log2); \
   }
 

@@ -9,10 +9,13 @@
 //   VAL_BY_EDGE    values[ids[k]]   a node table, ids in canonical order
 //   VAL_BY_SORTED  values[ids[j]]   a node table, ids in sorted order (opp_ids)
 //
-// The forward (sigma_sum_rows) gives one warp per row, each lane owning 4
-// consecutive columns (16-byte accesses) per 128-column slice when
-// VEC == 4; its sums are taken in f32 registers in CSR order: deterministic,
-// no atomics. The backward (sigma_bwd_walk) is an edge-balanced walk over
+// T is the stored type of the [E, D] data and the node table: float, or
+// bf16 for the bf16 entries (loads convert to f32, all arithmetic runs in
+// f32, stores round to nearest); the sums and g_sums are f32 arrays. The
+// forward (sigma_sum_rows) gives one warp per row, each lane owning one
+// 16-byte access of consecutive columns per slice (VEC = 4 f32 or 8 bf16)
+// where the rows allow it; its sums are taken in f32 registers in CSR
+// order: deterministic, no atomics. The backward (sigma_bwd_walk) is an edge-balanced walk over
 // the sorted positions. Nothing assumes a row's edges or value rows lie near
 // each other, so graphs with cross-locus edges take the same path.
 #pragma once
@@ -45,9 +48,9 @@ __device__ __forceinline__ int64_t value_row(const int* __restrict__ ids, int64_
 }
 
 // sums[v] = [sum_j sigmoid(e[k]) * value(j) || sum_j sigmoid(e[k])]  (f32 [N, 2D])
-template <int VEC, bool ORDERED, int VAL>
+template <typename T, int VEC, bool ORDERED, int VAL>
 __device__ __forceinline__ void sigma_sum_rows(
-    const float* __restrict__ e, const float* __restrict__ values,
+    const T* __restrict__ e, const T* __restrict__ values,
     const int* __restrict__ offsets, const int* __restrict__ order,
     const int* __restrict__ ids, float* __restrict__ sums, int64_t n_nodes, int d) {
   const int lane = threadIdx.x & 31;
@@ -82,7 +85,9 @@ __device__ __forceinline__ void sigma_sum_rows(
 // ([N, 2D]): per edge, with s = sigmoid(e[k]) and val = value(j),
 //   d_e = (g1 * val + g2) * s * (1 - s),   d_v = g1 * s,
 // written at the canonical position k, or at the sorted position j when
-// SORTED_OUT; zero on padded edges.
+// SORTED_OUT; zero on padded edges. For T = bf16, g_sums is rounded to bf16
+// as it is loaded (the JAX VJP casts the cotangent to the edge dtype before
+// it gathers it) and d_e, d_v are rounded as they are stored.
 //
 // An edge-balanced walk over the sorted positions j of [0, n_rows)
 // (gnnome::edge_walker): every walker takes every W-th tile of 4 positions,
@@ -98,12 +103,12 @@ __device__ __forceinline__ void sigma_sum_rows(
 // read with streaming loads beside a node-table gather and plain loads
 // otherwise (gnnome::load_stream). No sums, so the walk needs no order;
 // launch with lanes_log2 and CH from gnnome::lane_layout.
-template <int VEC, int CH, bool ORDERED, int VAL, bool SORTED_OUT>
+template <typename T, int VEC, int CH, bool ORDERED, int VAL, bool SORTED_OUT>
 __device__ __forceinline__ void sigma_bwd_walk(
-    const float* __restrict__ e, const float* __restrict__ g_sums,
-    const float* __restrict__ values, const int* __restrict__ seg,
+    const T* __restrict__ e, const float* __restrict__ g_sums,
+    const T* __restrict__ values, const int* __restrict__ seg,
     const int* __restrict__ order, const int* __restrict__ ids,
-    float* __restrict__ d_e, float* __restrict__ d_v, int64_t n_nodes,
+    T* __restrict__ d_e, T* __restrict__ d_v, int64_t n_nodes,
     int64_t n_rows, int d, int lanes_log2) {
   constexpr int R = SIGMA_BWD_R;
   constexpr bool CS = VAL != VAL_AT_EDGE;  // streaming loads beside a table gather
@@ -176,6 +181,11 @@ __device__ __forceinline__ void sigma_bwd_walk(
             if (u[r] != prev) {
               load_vec<VEC>(g_sums + (int64_t)u[r] * 2 * d + col[q], g1[r][q]);
               load_vec<VEC>(g_sums + (int64_t)u[r] * 2 * d + d + col[q], g2[r][q]);
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) {
+                g1[r][q][v] = round_to<T>(g1[r][q][v]);
+                g2[r][q][v] = round_to<T>(g2[r][q][v]);
+              }
             }
           }
         }

@@ -8,7 +8,7 @@
 //
 // Bound on the H100: bytes. At E = 1M ids and D = 512 f32 it writes 2.05 GB
 // and reads 4 MB of ids and at most 307 MB of a 150k-row table: 0.70 ms at
-// 3.35 TB/s (D = 256: 0.35 ms; D = 64: 0.09 ms).
+// 3.35 TB/s (D = 256: 0.35 ms; D = 64: 0.09 ms); a bf16 table half that.
 //
 // Design, for a gather that is all memory traffic (bulk asynchronous copies
 // of whole rows through shared memory were tried and were no faster):
@@ -23,8 +23,9 @@
 //   with streaming stores (st.global.cs) and does not evict the table,
 //   whose rows neighbouring edges share (the local graph's src ids lie
 //   within 22 of each other, dst is sorted); table loads stay cached.
-// VEC = 4 moves 16-byte chunks (d % 4 == 0, aligned bases); VEC = 1 moves
-// single floats for any other width.
+// The entries copy f32 or bf16 rows bit for bit: VEC elements of 16 bytes
+// (4 f32 or 8 bf16; rows of a multiple of 16 bytes, aligned bases), or one
+// element at a time for any other width.
 #include "common.cuh"
 
 namespace {
@@ -36,27 +37,35 @@ constexpr int BLOCKS_PER_SM = 32;
 constexpr int ROWS = 4;  // rows a lane group has in flight
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int VEC>
+// The unit a lane copies: 16 bytes (VEC = 4 floats or 8 bf16) or one
+// element. A gather moves bits, so a bf16 row is copied as raw chunks.
+template <typename T, int VEC>
 struct Chunk;
 template <>
-struct Chunk<4> {
-  using T = float4;
-  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+struct Chunk<float, 4> {
+  using type = float4;
 };
 template <>
-struct Chunk<1> {
-  using T = float;
-  static __device__ __forceinline__ T zero() { return 0.0f; }
+struct Chunk<float, 1> {
+  using type = float;
+};
+template <>
+struct Chunk<gnnome::bf16, 8> {
+  using type = uint4;
+};
+template <>
+struct Chunk<gnnome::bf16, 1> {
+  using type = unsigned short;
 };
 
 // lanes_log2: log2 of the lanes that share a row (3, 4 or 5); a warp holds
 // 32 >> lanes_log2 row slots and takes ROWS rows per slot at a time, CH
 // chunks of each per lane.
-template <int VEC, int CH>
+template <typename E, int VEC, int CH>
 __global__ void __launch_bounds__(THREADS) take_rows_kernel(
-    const float* __restrict__ table, const int* __restrict__ ids,
-    float* __restrict__ out, int n_ids, int n_rows, int d, int lanes_log2) {
-  using T = typename Chunk<VEC>::T;
+    const E* __restrict__ table, const int* __restrict__ ids,
+    E* __restrict__ out, int n_ids, int n_rows, int d, int lanes_log2) {
+  using T = typename Chunk<E, VEC>::type;
   const int per_row = d / VEC;  // chunks in a row
   const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & 31;
@@ -86,7 +95,7 @@ __global__ void __launch_bounds__(THREADS) take_rows_kernel(
 #pragma unroll
         for (int k = 0; k < CH; ++k) {
           const int c = c0 + k * lanes;
-          v[r][k] = (hit && c < per_row) ? row[c] : Chunk<VEC>::zero();
+          v[r][k] = (hit && c < per_row) ? row[c] : T{};
         }
       }
 #pragma unroll
@@ -104,8 +113,8 @@ __global__ void __launch_bounds__(THREADS) take_rows_kernel(
   }
 }
 
-template <int VEC, int CH>
-cudaError_t launch(const float* table, const int* ids, float* out, int n_ids,
+template <typename E, int VEC, int CH>
+cudaError_t launch(const E* table, const int* ids, E* out, int n_ids,
                    int n_rows, int d, int lanes_log2, int device, cudaStream_t s) {
   int sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -113,29 +122,26 @@ cudaError_t launch(const float* table, const int* ids, float* out, int n_ids,
   const int64_t rows_per_block = (THREADS / 32) * (32 >> lanes_log2) * ROWS;
   const unsigned grid = gnnome::grid_for(n_ids, static_cast<int>(rows_per_block),
                                          static_cast<int64_t>(sms) * BLOCKS_PER_SM);
-  take_rows_kernel<VEC, CH><<<grid, THREADS, 0, s>>>(table, ids, out, n_ids, n_rows,
-                                                          d, lanes_log2);
+  take_rows_kernel<E, VEC, CH><<<grid, THREADS, 0, s>>>(table, ids, out, n_ids, n_rows,
+                                                         d, lanes_log2);
   return cudaGetLastError();
 }
 
-template <int VEC>
-cudaError_t dispatch(const float* table, const int* ids, float* out, int n_ids,
+template <typename E, int VEC>
+cudaError_t dispatch(const E* table, const int* ids, E* out, int n_ids,
                      int n_rows, int d, int device, cudaStream_t s) {
   // 8 lanes at least, so a warp's rows in flight fit 32 ids
   int lanes_log2 = 5, chunks = 1;
   gnnome::lane_layout(d / VEC, &lanes_log2, &chunks);
   return gnnome::with_chunks(chunks, [&](auto ch) {
-    return launch<VEC, decltype(ch)::value>(table, ids, out, n_ids, n_rows, d, lanes_log2,
-                                            device, s);
+    return launch<E, VEC, decltype(ch)::value>(table, ids, out, n_ids, n_rows, d,
+                                               lanes_log2, device, s);
   });
 }
 
-}  // namespace
-
-GNNOME_API int gnnome_take_rows_f32(const float* table, const int* ids,
-                                    float* out, int64_t n_ids, int64_t n_rows,
-                                    int d, int vec4, int device,
-                                    void* stream) {
+template <typename E>
+int take(const E* table, const int* ids, E* out, int64_t n_ids, int64_t n_rows, int d,
+         int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_ids == 0 || d == 0) return 0;
@@ -143,9 +149,24 @@ GNNOME_API int gnnome_take_rows_f32(const float* table, const int* ids,
   if (n_ids > (int64_t{1} << 30) || n_rows > (int64_t{1} << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = vec4 ? dispatch<4>(table, ids, out, static_cast<int>(n_ids),
-                           static_cast<int>(n_rows), d, device, s)
-             : dispatch<1>(table, ids, out, static_cast<int>(n_ids),
-                           static_cast<int>(n_rows), d, device, s);
+  err = vec ? dispatch<E, gnnome::VEC16<E>>(table, ids, out, static_cast<int>(n_ids),
+                                            static_cast<int>(n_rows), d, device, s)
+            : dispatch<E, 1>(table, ids, out, static_cast<int>(n_ids),
+                             static_cast<int>(n_rows), d, device, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// vec: 16-byte chunks (rows of a multiple of 16 bytes, aligned bases)
+GNNOME_API int gnnome_take_rows_f32(const float* table, const int* ids,
+                                    float* out, int64_t n_ids, int64_t n_rows,
+                                    int d, int vec, int device, void* stream) {
+  return take(table, ids, out, n_ids, n_rows, d, vec, device, stream);
+}
+
+GNNOME_API int gnnome_take_rows_bf16(const gnnome::bf16* table, const int* ids,
+                                     gnnome::bf16* out, int64_t n_ids, int64_t n_rows,
+                                     int d, int vec, int device, void* stream) {
+  return take(table, ids, out, n_ids, n_rows, d, vec, device, stream);
 }

@@ -33,6 +33,9 @@ Every branch runs on kernels, following the JAX layer line by line
 
 Every sum on these paths is a fixed-order CSR walk (no float atomics), so
 a checkpointed layer's recompute reproduces its forward bit for bit.
+Under bf16 compute (``h``, ``e`` and the parameters bf16; the BatchNorm
+narrow branch) the moments, the folded affine and the aggregation sums
+stay f32, and ``h_fwd`` / ``h_bwd`` return to bf16, as in JAX.
 Dropout, as in JAX, is applied to ``h`` after the residual when a rate and
 a generator are given.
 """
@@ -112,8 +115,10 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
             var = torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
         else:
             mean, var = masked_moments(gate, graph.edge_mask)
-        scale2 = torch.rsqrt(var + 1e-5) * params["norm_e"]["scale"]
-        bias2 = params["norm_e"]["bias"] - mean * scale2
+        # the affine in f32 whatever the compute dtype
+        # (gnnome_tpu/models/gated_gcn.py:151-152)
+        scale2 = torch.rsqrt(var + 1e-5) * params["norm_e"]["scale"].to(torch.float32)
+        bias2 = params["norm_e"]["bias"].to(torch.float32) - mean * scale2
         affine = torch.stack([scale2, bias2])
         if wide_gathers:
             sum_f, e_new = fused_gate_sigma_aggregate(gate, e_in, a2_src, affine,

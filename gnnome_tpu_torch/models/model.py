@@ -61,6 +61,37 @@ def score_predictor(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
 
 
 REMAT_MODES = ("none", "layer", "group", "unroll_group")
+BF16_NAMES = ("bfloat16", "bf16")
+
+
+def compute_dtype_of(compute_dtype: str, batch_norm: bool = True,
+                     wide_gathers=False) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` name, JAX's spellings
+    (``"float32"``; ``"bfloat16"`` / ``"bf16"``). bf16 covers the BatchNorm
+    model with narrow gathers: the LayerNorm and wide-gather layers' kernels
+    (rows 10-11 of the kernel table) have no bf16 entries yet, and any other
+    combination raises ``NotImplementedError`` naming it."""
+    if compute_dtype == "float32":
+        return torch.float32
+    if compute_dtype not in BF16_NAMES:
+        raise ValueError(f"compute_dtype={compute_dtype!r}; one of float32, {BF16_NAMES}")
+    if not batch_norm or wide_gathers:
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r} with batch_norm={batch_norm}, "
+            f"wide_gathers={wide_gathers!r}: bf16 covers the BatchNorm model with narrow "
+            "gathers; the LayerNorm and wide-gather kernels (sigma_aggregate, "
+            "gate_sigma_aggregate and their backwards) have no bf16 entries yet")
+    return torch.bfloat16
+
+
+def _cast_params(params, dtype: torch.dtype):
+    """Every float32 leaf cast to ``dtype`` (differentiable: the gradients
+    reach the float32 leaves in float32, as JAX's ``astype`` VJP does)."""
+    if isinstance(params, dict):
+        return {k: _cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_cast_params(v, dtype) for v in params)
+    return params.to(dtype) if params.dtype == torch.float32 else params
 
 
 def _layer_stack(layers, graph: AssemblyGraph, h, e, batch_norm: bool, wide_gathers):
@@ -80,12 +111,20 @@ def _layer_rng(rng: torch.Generator, device: torch.device) -> torch.Generator:
 def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
                   pe: torch.Tensor, batch_norm: bool = True, remat: str = "layer",
                   remat_group: int = 4, wide_gathers=False, dropout_rate: float = 0.0,
-                  dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                  dropout_rng: Optional[torch.Generator] = None,
+                  compute_dtype: str = "float32") -> torch.Tensor:
     """Per-edge logits, f32[E_pad] in canonical order (rows past
     ``graph.n_edges`` are padding). ``e_feat``: f32[E_pad, 2] z-normed
     [overlap_length, overlap_similarity]; ``pe``: f32[N_pad, nb_pos_enc + 2]
     = [in_deg ‖ out_deg ‖ PageRank PE]. ``wide_gathers``: False, True or
     ``"src"`` (``models/gated_gcn.py``).
+
+    ``compute_dtype`` ``"bfloat16"`` (or ``"bf16"``) runs the model in bf16
+    with f32 master weights, as ``gnnome_tpu/models/model.py:134-140``:
+    every f32 leaf, ``pe`` and ``e_feat`` are cast to bf16 inside the
+    forward, the kernels take their bf16 entries (f32 sums and moments), and
+    the logits come back in f32. The BatchNorm narrow model only
+    (:func:`compute_dtype_of`).
 
     Dropout (``dropout_rate`` > 0 with a ``dropout_rng``, a CPU generator
     in place of JAX's ``dropout_rng`` key) runs the layers as a plain loop,
@@ -110,6 +149,10 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
     """
     if remat not in REMAT_MODES:
         raise ValueError(f"unknown remat mode {remat!r}; one of {REMAT_MODES}")
+    cdt = compute_dtype_of(compute_dtype, batch_norm, wide_gathers)
+    if cdt != torch.float32:
+        params = _cast_params(params, cdt)
+        pe, e_feat = pe.to(cdt), e_feat.to(cdt)
     h = linear(params["linear_pe"], pe)
     e = torch.relu(linear(params["linear1_edge"], e_feat))
     e = linear(params["linear2_edge"], e)

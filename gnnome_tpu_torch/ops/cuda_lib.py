@@ -11,7 +11,10 @@ tests import every module on a machine with no ``nvcc`` and no card.
 :class:`Kernel` is one C entry point: it launches on the current PyTorch
 stream of the tensors' device, raises on the CUDA error code the entry
 point returns, and counts its launches in the plain integer
-``launches``.
+``launches``. An entry takes one storage type for its data: ``_f32``
+symbols float32, ``_bf16`` symbols bfloat16 (loaded as f32, stored rounded
+to nearest; sums, moments and the affine stay float32); :func:`entry`
+picks the one for a tensor's dtype.
 """
 from __future__ import annotations
 
@@ -129,12 +132,14 @@ class Kernel:
 
     ``argtypes`` lists the entry point's own arguments; the device index and
     the stream are appended by :meth:`__call__`. ``source`` and ``replaces``
-    name the CUDA file and the TPU kernel it stands in for."""
+    name the CUDA file and the TPU kernel it stands in for; ``dtype`` is the
+    storage type of its data."""
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence,
-                 source: str, replaces: str):
+                 source: str, replaces: str, dtype: torch.dtype = torch.float32):
         self.name = name
         self.symbol = symbol
+        self.dtype = dtype
         self.argtypes = list(argtypes)
         self.source = source
         self.replaces = replaces
@@ -176,18 +181,34 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {device}")
 
 
+def entry(dtype: torch.dtype, *kernels: Kernel) -> Kernel:
+    """The kernel among ``kernels`` whose data are ``dtype``; raises for a
+    dtype none of them takes (no entry is reached by a cast)."""
+    for kernel in kernels:
+        if kernel.dtype == dtype:
+            return kernel
+    names = ", ".join(f"{k.name} ({k.dtype})" for k in kernels)
+    raise ValueError(f"no kernel entry for {dtype}: {names}")
+
+
 def check_cuda_args(name: str, floats: Sequence[torch.Tensor],
-                    ints: Sequence[torch.Tensor]) -> None:
-    """What every kernel here takes: contiguous float32 data, int32 ids."""
-    for t in floats:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous float32, got {t.dtype} "
-                             f"contiguous={t.is_contiguous()}")
+                    ints: Sequence[torch.Tensor], dtype: torch.dtype = torch.float32,
+                    f32: Sequence[torch.Tensor] = ()) -> None:
+    """What every kernel here takes: contiguous data of the entry's
+    ``dtype`` (float32 or bfloat16), the float32 parts of a bf16 entry
+    (``f32``: sums, moments, the affine) and int32 ids, all contiguous."""
+    for want, group in ((dtype, floats), (torch.float32, f32)):
+        for t in group:
+            if t.dtype != want or not t.is_contiguous():
+                raise ValueError(f"{name}: needs contiguous {want}, got {t.dtype} "
+                                 f"contiguous={t.is_contiguous()}")
     for t in ints:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: needs contiguous int32 ids, got {t.dtype}")
 
 
-def vec4_ok(d: int, *tensors: torch.Tensor) -> bool:
-    """16-byte accesses need rows of a multiple of 4 floats and aligned bases."""
-    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+def vec_ok(d: int, *tensors: torch.Tensor) -> bool:
+    """16-byte accesses (4 float32 or 8 bfloat16) need rows of a multiple of
+    16 bytes in every tensor and aligned bases."""
+    return all((d * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
+               for t in tensors)

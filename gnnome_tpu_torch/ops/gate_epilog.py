@@ -11,6 +11,15 @@ JAX ``_fused_gate_gather_bwd`` and ``_fused_gate_bwd``) runs
 ``csrc/epilog_bwd.cu`` (``epilog_bwd_pallas``, or its pregathered entry for
 the XLA VJP of the second; an edge-balanced walk that reads each edge's row
 from ``by_dst.key``), then, with ``src``, the by_src segment sum.
+
+Under bf16 (``gnnome_tpu/ops/segment.py:769-790, 804-850``): the gate,
+``e_in``, the values and ``e_new`` are bf16, the affine and the sums f32;
+``e_new`` is rounded to bf16 and σ taken of the rounded value; in the
+backward the ``g_sums`` rows are rounded to bf16 before use (the JAX VJP
+casts the cotangent to the edge dtype), the [E, D] cotangents are computed
+in f32 and rounded once, and ``d_affine`` stays f32. ``GateSigmaGather``
+covers the gather form (the BatchNorm narrow path); the pregathered form
+stays f32.
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ import torch
 
 from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
-    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+    I32, I64, P, Kernel, check_cuda_args, entry, on_cpu, register, vec_ok)
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
 from gnnome_tpu_torch.ops.take import take_rows_plain
 
@@ -29,6 +38,12 @@ GATE_SIGMA_GATHER = register(Kernel(
     [P, P, P, P, P, P, P, P, I64, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_epilog.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:3020 fused_gate_sigma_gather_pallas"))
+GATE_SIGMA_GATHER_BF16 = register(Kernel(
+    "gate_sigma_gather_bf16", "gnnome_gate_sigma_gather_bf16",
+    [P, P, P, P, P, P, P, P, I64, I64, I32, I32],
+    source="gnnome_tpu_torch/csrc/gate_epilog.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:3020 fused_gate_sigma_gather_pallas",
+    dtype=torch.bfloat16))
 GATE_SIGMA_AGGREGATE = register(Kernel(
     "gate_sigma_aggregate", "gnnome_gate_sigma_aggregate_f32",
     [P, P, P, P, P, P, P, I64, I64, I32, I32],
@@ -39,6 +54,11 @@ EPILOG_BWD = register(Kernel(
     [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
     source="gnnome_tpu_torch/csrc/epilog_bwd.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:1550 epilog_bwd_pallas"))
+EPILOG_BWD_BF16 = register(Kernel(
+    "epilog_bwd_bf16", "gnnome_epilog_bwd_bf16",
+    [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    source="gnnome_tpu_torch/csrc/epilog_bwd.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:1550 epilog_bwd_pallas", dtype=torch.bfloat16))
 EPILOG_BWD_PREGATHERED = register(Kernel(
     "epilog_bwd_pregathered", "gnnome_epilog_bwd_pregathered_f32",
     [P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
@@ -59,10 +79,11 @@ def _value_rows(values, src):
 
 def gate_sigma_gather_plain(gate, e_in, values, affine, by_dst: CSR, src=None):
     n, d = by_dst.offsets.shape[0] - 1, gate.shape[1]
-    pre = gate * affine[0] + affine[1]
-    e_new = torch.relu(pre) + e_in
-    sigma = torch.sigmoid(e_new)
-    stacked = torch.cat([sigma * _value_rows(values, src), sigma], dim=-1)
+    f32 = torch.float32
+    pre = gate.to(f32) * affine[0] + affine[1]
+    e_new = (torch.relu(pre) + e_in.to(f32)).to(e_in.dtype)
+    sigma = torch.sigmoid(e_new.to(f32))
+    stacked = torch.cat([sigma * _value_rows(values, src).to(f32), sigma], dim=-1)
     valid = by_dst.key < n
     sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=values.device)
     sums.index_add_(0, by_dst.key[valid], stacked[valid])
@@ -78,14 +99,17 @@ def gate_sigma_gather(gate: torch.Tensor, e_in: torch.Tensor,
     with ``v = values[src]`` (node table) or, without ``src``, ``values``
     itself ([E, D] pregathered rows, ``gate_sigma_aggregate``); padded edges
     (key ``PAD_SEGMENT``) join no sum. ``by_dst`` must be the canonical
-    (identity) layout."""
+    (identity) layout. ``gate``, ``e_in``, ``values`` and ``e_new`` are
+    float32, or bfloat16 in the gather form; ``affine`` and the sums f32."""
     if not by_dst.identity:
         raise ValueError("gate_sigma_gather runs on the canonical (by_dst) layout")
     extra = [] if src is None else [src]
     if on_cpu(gate, e_in, values, affine, by_dst.key, by_dst.offsets, *extra):
         return gate_sigma_gather_plain(gate, e_in, values, affine, by_dst, src)
-    kernel = GATE_SIGMA_AGGREGATE if src is None else GATE_SIGMA_GATHER
-    check_cuda_args(kernel.name, [gate, e_in, values, affine], [by_dst.offsets, *extra])
+    kernel = GATE_SIGMA_AGGREGATE if src is None else entry(
+        gate.dtype, GATE_SIGMA_GATHER, GATE_SIGMA_GATHER_BF16)
+    check_cuda_args(kernel.name, [gate, e_in, values], [by_dst.offsets, *extra],
+                    dtype=kernel.dtype, f32=[affine])
     n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate.shape
     # a node table has a row per node, pregathered values one per edge
     if gate.shape != e_in.shape or affine.shape != (2, d) \
@@ -93,24 +117,27 @@ def gate_sigma_gather(gate: torch.Tensor, e_in: torch.Tensor,
         raise ValueError(f"{kernel.name}: shape mismatch")
     sums = torch.empty((n, 2 * d), dtype=torch.float32, device=gate.device)
     e_new = torch.empty_like(e_in)
-    vec4 = int(vec4_ok(d, gate, e_in, values, affine, sums, e_new))
+    vec = int(vec_ok(d, gate, e_in, values, affine, sums, e_new))
     ptrs = [gate.data_ptr(), e_in.data_ptr(), values.data_ptr(), affine.data_ptr(),
             by_dst.offsets.data_ptr(), *(t.data_ptr() for t in extra)]
-    kernel(gate.device, *ptrs, sums.data_ptr(), e_new.data_ptr(), n, n_rows, d, vec4)
+    kernel(gate.device, *ptrs, sums.data_ptr(), e_new.data_ptr(), n, n_rows, d, vec)
     return sums, e_new
 
 
 def epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst: CSR,
                      src=None):
-    d = gate_raw.shape[1]
-    gc = take_rows_plain(g_sums, by_dst.key)  # zero rows on padded edges
+    d, dt, f32 = gate_raw.shape[1], gate_raw.dtype, torch.float32
+    # zero rows on padded edges; the cotangent rounded to the edge dtype
+    gc = take_rows_plain(g_sums.to(dt), by_dst.key).to(f32)
     g1, g2 = gc[:, :d], gc[:, d:]
-    pre = gate_raw * affine[0] + affine[1]
-    sig = torch.sigmoid(e_new)
-    d_enew = g_enew + (g1 * _value_rows(values, src) + g2) * (sig * (1.0 - sig))
+    graw = gate_raw.to(f32)
+    pre = graw * affine[0] + affine[1]
+    sig = torch.sigmoid(e_new.to(f32))
+    d_enew = g_enew.to(f32) + (g1 * _value_rows(values, src).to(f32) + g2) \
+        * (sig * (1.0 - sig))
     d_pre = d_enew * (pre > 0)
-    d_affine = torch.stack([(d_pre * gate_raw).sum(0), d_pre.sum(0)])
-    return d_pre * affine[0], d_enew, g1 * sig, d_affine
+    d_affine = torch.stack([(d_pre * graw).sum(0), d_pre.sum(0)])
+    return (d_pre * affine[0]).to(dt), d_enew.to(dt), (g1 * sig).to(dt), d_affine
 
 
 def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor,
@@ -121,7 +148,10 @@ def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor
     its outputs (``g_sums`` [N, 2D], ``g_enew`` [E, D]); ``d_vals`` is per
     edge (with ``src``, its by_src segment sum is ``d_values``; without, it
     is the gradient of the pregathered rows) and ``d_affine`` ([2, D]) is
-    summed over all rows, padded ones included."""
+    summed over all rows, padded ones included. bfloat16 [E, D] data (the
+    gather form) take ``g_sums`` and ``affine`` in f32, round the
+    ``g_sums`` rows to bf16 as they use them and return bf16 cotangents and
+    an f32 ``d_affine``."""
     if not by_dst.identity:
         raise ValueError("epilog_bwd runs on the canonical (by_dst) layout")
     extra = [] if src is None else [src]
@@ -129,9 +159,11 @@ def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor
               by_dst.offsets, *extra):
         return epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine,
                                 by_dst, src)
-    kernel = EPILOG_BWD_PREGATHERED if src is None else EPILOG_BWD
+    kernel = EPILOG_BWD_PREGATHERED if src is None else entry(
+        gate_raw.dtype, EPILOG_BWD, EPILOG_BWD_BF16)
     floats = [gate_raw, e_new, g_enew, g_sums, values, affine]
-    check_cuda_args(kernel.name, floats, [by_dst.key, *extra])
+    check_cuda_args(kernel.name, [gate_raw, e_new, g_enew, values], [by_dst.key, *extra],
+                    dtype=kernel.dtype, f32=[g_sums, affine])
     n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate_raw.shape
     if not (gate_raw.shape == e_new.shape == g_enew.shape) \
             or values.shape != (n_rows if src is None else n, d) \
@@ -141,11 +173,11 @@ def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor
     d_gate_raw, d_e_in, d_vals = (torch.empty_like(gate_raw) for _ in range(3))
     partial = torch.empty((_MAX_PARTS, 2, d), dtype=torch.float32, device=gate_raw.device)
     d_affine = torch.empty((2, d), dtype=torch.float32, device=gate_raw.device)
-    vec4 = vec4_ok(d, *floats, d_gate_raw, d_e_in, d_vals)
+    vec = vec_ok(d, *floats, d_gate_raw, d_e_in, d_vals)
     kernel(gate_raw.device, *(t.data_ptr() for t in floats), by_dst.key.data_ptr(),
            *(t.data_ptr() for t in extra), d_gate_raw.data_ptr(), d_e_in.data_ptr(),
            d_vals.data_ptr(), partial.data_ptr(), d_affine.data_ptr(), n, n_rows, d,
-           _MAX_PARTS, int(vec4))
+           _MAX_PARTS, int(vec))
     return d_gate_raw, d_e_in, d_vals, d_affine
 
 
@@ -175,5 +207,6 @@ class GateSigmaGather(torch.autograd.Function):
             gate, e_new, g_enew.contiguous(), g_sums.contiguous(), values, affine,
             ctx.by_dst, ctx.src)
         if ctx.src is not None:
-            d_vals = segment_sum(d_vals, ctx.by_src) if ctx.needs_input_grad[2] else None
+            d_vals = segment_sum(d_vals, ctx.by_src).to(values.dtype) \
+                if ctx.needs_input_grad[2] else None
         return d_gate, d_e_in, d_vals, d_affine, None, None, None

@@ -5,7 +5,12 @@ Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:gate_front_pallas``. The
 CUDA kernel is ``csrc/gate_front.cu``: the ``e·W3`` product runs inside it,
 on the tensor cores as a 3-pass split-TF32 product with f32 accuracy, as
 the TPU kernel runs it on the MXU at ``Precision.HIGHEST``. The plain
-version below is its CPU form and its reference on the card.
+version below is its CPU form and its reference on the card. Under bf16
+(``compute_dtype="bfloat16"``) its own entry runs the product as one bf16
+tensor-core product with an f32 accumulator, and rounds where the TPU
+kernel rounds (``gnnome_tpu/ops/spmm_pallas.py:2619-2655``): the product
+to bf16, ``+ b3`` in bf16, the endpoint rows added in f32, the gate stored
+in bf16, the moments taken of the stored gate in f32.
 Its backward (:class:`GateFront`, the JAX ``_gate_front_bwd``) runs
 ``csrc/gate_front_bwd.cu`` (``gate_front_bwd_stream_pallas``) and the two
 endpoint segment sums; the B3 gradients are matrix products.
@@ -16,7 +21,7 @@ import torch
 
 from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
-    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+    I32, I64, P, Kernel, check_cuda_args, entry, on_cpu, register, vec_ok)
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
 
 GATE_FRONT = register(Kernel(
@@ -24,25 +29,47 @@ GATE_FRONT = register(Kernel(
     [P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_front.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:2669 gate_front_pallas"))
+GATE_FRONT_BF16 = register(Kernel(
+    "gate_front_bf16", "gnnome_gate_front_bf16",
+    [P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    source="gnnome_tpu_torch/csrc/gate_front.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:2669 gate_front_pallas", dtype=torch.bfloat16))
 GATE_FRONT_BWD = register(Kernel(
     "gate_front_bwd", "gnnome_gate_front_bwd_f32",
     [P, P, P, P, P, P, I64, I64, I32, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_front_bwd.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:1031 gate_front_bwd_stream_pallas"))
+GATE_FRONT_BWD_BF16 = register(Kernel(
+    "gate_front_bwd_bf16", "gnnome_gate_front_bwd_bf16",
+    [P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    source="gnnome_tpu_torch/csrc/gate_front_bwd.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:1031 gate_front_bwd_stream_pallas",
+    dtype=torch.bfloat16))
 
 # csrc/gate_front.cu: one block per SM walks the 128-edge row tiles and
 # leaves one partial moments row, summed in a fixed order by a second
 # kernel; W3 is split into tf32 hi/lo parts, padded to 256-column blocks
 # and K slices of 16 (an even count of them), in scratch the wrapper gives
 _FRONT_ROW_TILE, _FRONT_COLS, _FRONT_K = 128, 256, 16
+# its bf16 entry: 64-edge row tiles, 128-column blocks, two blocks an SM,
+# the W3 slice in shared memory (d up to 512)
+_BF16_ROW_TILE, _BF16_COLS, _BF16_MAX_D = 64, 128, 512
 # csrc/gate_front_bwd.cu: blocks that walk its 64-edge row tiles
 _ROW_TILE = 64
 _MAX_PARTS = 1024
 
 
 def gate_front_plain(b1h, b2h, e, w3, b3, src, dst, n_real: int):
-    b3e = e @ w3 + b3
-    gate = b1h[src] + b2h[dst] + b3e
+    if e.dtype == torch.float32:
+        b3e = e @ w3 + b3
+        gate = b1h[src] + b2h[dst] + b3e
+    else:
+        # the product of bf16 values summed in f32 and rounded once, then
+        # the TPU kernel's cast points
+        f32 = torch.float32
+        proj = (e.to(f32) @ w3.to(f32)).to(e.dtype)
+        pb = (proj.to(f32) + b3.to(f32)).to(e.dtype)
+        gate = ((pb.to(f32) + b1h[src].to(f32)) + b2h[dst].to(f32)).to(e.dtype)
     g = gate[:n_real].to(torch.float32)
     return gate, torch.stack([g.sum(0), (g * g).sum(0)])
 
@@ -53,14 +80,18 @@ def gate_front(b1h: torch.Tensor, b2h: torch.Tensor, e: torch.Tensor,
     """``(gate, mom)``: ``gate = b1h[src] + b2h[dst] + (e·W3 + b3)`` per
     edge ([E, D]) and ``mom = [Σ gate ‖ Σ gate²]`` over the first
     ``n_real`` edges (f32 [2, D]). ``src``/``dst`` must be valid node ids
-    (padding clamped to 0, as ``AssemblyGraph`` stores them)."""
+    (padding clamped to 0, as ``AssemblyGraph`` stores them). float32 or
+    bfloat16 data (one dtype for all five); ``mom`` is f32 either way."""
     if on_cpu(b1h, b2h, e, w3, b3, src, dst):
         return gate_front_plain(b1h, b2h, e, w3, b3, src, dst, n_real)
-    check_cuda_args("gate_front", [b1h, b2h, e, w3, b3], [src, dst])
+    kernel = entry(e.dtype, GATE_FRONT, GATE_FRONT_BF16)
+    check_cuda_args(kernel.name, [b1h, b2h, e, w3, b3], [src, dst], dtype=kernel.dtype)
     n_rows, d = e.shape
     if w3.shape != (d, d) or b1h.shape[1] != d or b2h.shape[1] != d:
         raise ValueError("gate_front: width mismatch")
     sms = torch.cuda.get_device_properties(e.device).multi_processor_count
+    if kernel is GATE_FRONT_BF16:
+        return _gate_front_bf16(b1h, b2h, e, w3, b3, src, dst, n_real, sms)
     n_parts = max(1, min(sms, -(-n_rows // _FRONT_ROW_TILE)))
     n_ks = 2 * -(-d // (2 * _FRONT_K))
     n_cb = -(-d // _FRONT_COLS)
@@ -72,24 +103,51 @@ def gate_front(b1h: torch.Tensor, b2h: torch.Tensor, e: torch.Tensor,
     GATE_FRONT(e.device, b1h.data_ptr(), b2h.data_ptr(), e.data_ptr(),
                w3.data_ptr(), b3.data_ptr(), src.data_ptr(), dst.data_ptr(),
                gate.data_ptr(), partial.data_ptr(), mom.data_ptr(), w3_split.data_ptr(),
-               n_rows, n_real, d, n_parts, int(vec4_ok(d, b1h, b2h, e, b3, gate)))
+               n_rows, n_real, d, n_parts, int(vec_ok(d, b1h, b2h, e, b3, gate)))
+    return gate, mom
+
+
+def _gate_front_bf16(b1h, b2h, e, w3, b3, src, dst, n_real: int, sms: int):
+    n_rows, d = e.shape
+    if d > _BF16_MAX_D:
+        raise ValueError(f"gate_front_bf16: d={d}; the W3 slice in shared memory "
+                         f"takes d up to {_BF16_MAX_D}")
+    # the column blocks of a row tile run at once (two blocks an SM), so the
+    # second reads the e tile from the L2
+    n_cb = -(-d // _BF16_COLS)
+    n_parts = max(1, min(max(1, 2 * sms // n_cb), -(-n_rows // _BF16_ROW_TILE)))
+    gate = torch.empty_like(e)
+    partial = torch.empty((n_parts, 2, d), dtype=torch.float32, device=e.device)
+    mom = torch.empty((2, d), dtype=torch.float32, device=e.device)
+    GATE_FRONT_BF16(e.device, b1h.data_ptr(), b2h.data_ptr(), e.data_ptr(), w3.data_ptr(),
+                    b3.data_ptr(), src.data_ptr(), dst.data_ptr(), gate.data_ptr(),
+                    partial.data_ptr(), mom.data_ptr(), n_rows, n_real, d, n_parts,
+                    int(vec_ok(d, b1h, b2h, e, w3, b3, gate)))
     return gate, mom
 
 
 def gate_front_bwd_plain(d_gate, gate, d_mom, n_real: int):
     real = (torch.arange(gate.shape[0], device=gate.device) < n_real)[:, None]
-    d_total = d_gate + torch.where(real, d_mom[0] + 2.0 * gate * d_mom[1], 0.0)
-    return d_total, d_total.sum(0)
+    f32 = torch.float32
+    d_total = d_gate.to(f32) + torch.where(real, d_mom[0] + 2.0 * gate.to(f32) * d_mom[1],
+                                           0.0)
+    return d_total.to(gate.dtype), d_total.sum(0)
 
 
 def gate_front_bwd(d_gate: torch.Tensor, gate: torch.Tensor, d_mom: torch.Tensor,
                    n_real: int):
     """``(d_total, d_bias3)``: the gate's total cotangent
     ``d_gate + [k < n_real]·(d_mom[0] + 2·gate·d_mom[1])`` ([E, D]) and its
-    f32 column sum over all rows ([D])."""
+    f32 column sum over all rows ([D]). For bfloat16 ``d_gate`` and ``gate``
+    (``d_mom`` is f32), ``d_total`` is computed in f32 and stored rounded,
+    and ``d_bias3`` sums the unrounded values, as the JAX VJP does."""
     if on_cpu(d_gate, gate, d_mom):
         return gate_front_bwd_plain(d_gate, gate, d_mom, n_real)
-    check_cuda_args("gate_front_bwd", [d_gate, gate, d_mom], [])
+    kernel = entry(gate.dtype, GATE_FRONT_BWD, GATE_FRONT_BWD_BF16)
+    if kernel is GATE_FRONT_BWD:
+        check_cuda_args(kernel.name, [d_gate, gate, d_mom], [])
+    else:
+        check_cuda_args(kernel.name, [d_gate, gate], [], dtype=kernel.dtype, f32=[d_mom])
     n_rows, d = gate.shape
     if d_gate.shape != gate.shape or d_mom.shape != (2, d):
         raise ValueError("gate_front_bwd: shape mismatch")
@@ -97,9 +155,9 @@ def gate_front_bwd(d_gate: torch.Tensor, gate: torch.Tensor, d_mom: torch.Tensor
     d_total = torch.empty_like(gate)
     partial = torch.empty((n_parts, d), dtype=torch.float32, device=gate.device)
     d_bias3 = torch.empty((d,), dtype=torch.float32, device=gate.device)
-    GATE_FRONT_BWD(gate.device, d_gate.data_ptr(), gate.data_ptr(), d_mom.data_ptr(),
-                   d_total.data_ptr(), partial.data_ptr(), d_bias3.data_ptr(),
-                   n_rows, n_real, d, n_parts, int(vec4_ok(d, d_gate, gate, d_mom, d_total)))
+    kernel(gate.device, d_gate.data_ptr(), gate.data_ptr(), d_mom.data_ptr(),
+           d_total.data_ptr(), partial.data_ptr(), d_bias3.data_ptr(),
+           n_rows, n_real, d, n_parts, int(vec_ok(d, d_gate, gate, d_mom, d_total)))
     return d_total, d_bias3
 
 
@@ -108,7 +166,9 @@ class GateFront(torch.autograd.Function):
     (``gnnome_tpu/ops/segment.py:939-993``): ``d_b1h`` / ``d_b2h`` are the
     by_src / by_dst segment sums of ``d_total``, ``d_e = d_total·W3ᵀ``,
     ``d_W3 = eᵀ·d_total``, ``d_bias3 = Σ d_total``. Saves ``(gate, e, w3)``,
-    as ``_gate_front_fwd`` does."""
+    as ``_gate_front_fwd`` does. Under bf16 the f32 sums (the segment sums,
+    ``d_bias3``) are returned rounded to their inputs' dtype, as the JAX VJP
+    returns them, and the B3 products are bf16 products (f32 accumulation)."""
 
     @staticmethod
     def forward(ctx, b1h, b2h, e, w3, b3, src, dst, n_real: int,
@@ -116,6 +176,7 @@ class GateFront(torch.autograd.Function):
         gate, mom = gate_front(b1h, b2h, e, w3, b3, src, dst, n_real)
         ctx.save_for_backward(gate, e, w3)
         ctx.n_real, ctx.by_src, ctx.by_dst = n_real, by_src, by_dst
+        ctx.dtypes = b1h.dtype, b2h.dtype, b3.dtype
         return gate, mom
 
     @staticmethod
@@ -124,8 +185,9 @@ class GateFront(torch.autograd.Function):
         d_total, d_bias3 = gate_front_bwd(d_gate.contiguous(), gate,
                                           d_mom.contiguous(), ctx.n_real)
         need = ctx.needs_input_grad
-        d_b1h = segment_sum(d_total, ctx.by_src) if need[0] else None
-        d_b2h = segment_sum(d_total, ctx.by_dst) if need[1] else None
+        t1, t2, t3 = ctx.dtypes
+        d_b1h = segment_sum(d_total, ctx.by_src).to(t1) if need[0] else None
+        d_b2h = segment_sum(d_total, ctx.by_dst).to(t2) if need[1] else None
         d_e = d_total @ w3.T if need[2] else None
         d_w3 = e.T @ d_total if need[3] else None
-        return d_b1h, d_b2h, d_e, d_w3, d_bias3, None, None, None, None, None
+        return d_b1h, d_b2h, d_e, d_w3, d_bias3.to(t3), None, None, None, None, None

@@ -15,6 +15,12 @@ by_dst segment sum.
 The two compute one function; the opposite form reads each edge's dst id
 contiguously from ``by_src.opp_ids`` and is the JAX package's route when
 its TPU band plans exist. The model takes the first on every graph.
+
+Under bf16 the first and its backward have their own entries: ``e_new``,
+the values and the per-edge cotangents are bf16, the sums and ``g_sums``
+f32; the backward rounds the ``g_sums`` rows to bf16 before use (the JAX
+VJP casts the cotangent to the edge dtype) and each cotangent once, as it
+stores it (``gnnome_tpu/ops/segment.py:647-690``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 
 from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
-    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+    I32, I64, P, Kernel, check_cuda_args, entry, on_cpu, register, vec_ok)
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
 from gnnome_tpu_torch.ops.take import take_rows, take_rows_plain
 
@@ -31,10 +37,20 @@ SIGMA_REVERSE_SUM = register(Kernel(
     [P, P, P, P, P, P, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/reverse_sum.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:2446 fused_sigma_unsorted_pallas"))
+SIGMA_REVERSE_SUM_BF16 = register(Kernel(
+    "sigma_reverse_sum_bf16", "gnnome_sigma_reverse_sum_bf16",
+    [P, P, P, P, P, P, I64, I32, I32],
+    source="gnnome_tpu_torch/csrc/reverse_sum.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:2446 fused_sigma_unsorted_pallas",
+    dtype=torch.bfloat16))
 REV_BWD = register(Kernel(
     "rev_bwd", "gnnome_rev_bwd_f32", [P, P, P, P, P, P, P, P, I64, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/rev_bwd.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:1746 rev_bwd_pallas"))
+REV_BWD_BF16 = register(Kernel(
+    "rev_bwd_bf16", "gnnome_rev_bwd_bf16", [P, P, P, P, P, P, P, P, I64, I64, I32, I32],
+    source="gnnome_tpu_torch/csrc/rev_bwd.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:1746 rev_bwd_pallas", dtype=torch.bfloat16))
 SIGMA_OPPOSITE = register(Kernel(
     "sigma_opposite", "gnnome_sigma_opposite_f32",
     [P, P, P, P, P, P, I64, I32, I32],
@@ -48,8 +64,8 @@ OPP_BWD = register(Kernel(
 
 def sigma_reverse_sum_plain(e_new, values, by_src: CSR, dst):
     n, d = values.shape
-    sigma = torch.sigmoid(e_new)
-    stacked = torch.cat([sigma * values[dst], sigma], dim=-1)
+    sigma = torch.sigmoid(e_new.to(torch.float32))
+    stacked = torch.cat([sigma * values[dst].to(torch.float32), sigma], dim=-1)
     valid = by_src.key < n
     sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=values.device)
     sums.index_add_(0, by_src.key[valid], stacked[valid])
@@ -60,30 +76,33 @@ def sigma_reverse_sum(e_new: torch.Tensor, values: torch.Tensor,
                       by_src: CSR, dst: torch.Tensor) -> torch.Tensor:
     """Per source node ``[Σ σ(e_new)·values[dst] ‖ Σ σ(e_new)]`` (f32
     [N, 2D]) over its out-edges. ``e_new`` and ``dst`` are in canonical
-    order; padded edges (key ``PAD_SEGMENT``) join no sum."""
+    order; padded edges (key ``PAD_SEGMENT``) join no sum. float32 or
+    bfloat16 ``e_new`` and ``values``."""
     if by_src.identity:
         raise ValueError("sigma_reverse_sum needs the by_src layout")
     if on_cpu(e_new, values, by_src.key, by_src.offsets, by_src.order, dst):
         return sigma_reverse_sum_plain(e_new, values, by_src, dst)
-    check_cuda_args("sigma_reverse_sum", [e_new, values],
-                    [by_src.offsets, by_src.order, dst])
+    kernel = entry(e_new.dtype, SIGMA_REVERSE_SUM, SIGMA_REVERSE_SUM_BF16)
+    check_cuda_args(kernel.name, [e_new, values], [by_src.offsets, by_src.order, dst],
+                    dtype=kernel.dtype)
     n, d = values.shape
     if by_src.offsets.shape[0] != n + 1 or e_new.shape[1] != d:
         raise ValueError("sigma_reverse_sum: shape mismatch")
     sums = torch.empty((n, 2 * d), dtype=torch.float32, device=e_new.device)
-    vec4 = vec4_ok(d, e_new, values, sums)
-    SIGMA_REVERSE_SUM(e_new.device, e_new.data_ptr(), values.data_ptr(),
-                      by_src.offsets.data_ptr(), by_src.order.data_ptr(),
-                      dst.data_ptr(), sums.data_ptr(), n, d, int(vec4))
+    kernel(e_new.device, e_new.data_ptr(), values.data_ptr(), by_src.offsets.data_ptr(),
+           by_src.order.data_ptr(), dst.data_ptr(), sums.data_ptr(), n, d,
+           int(vec_ok(d, e_new, values, sums)))
     return sums
 
 
 def rev_bwd_plain(e_new, g_sums, values, by_src: CSR, dst):
-    d = values.shape[1]
-    gc = take_rows_plain(g_sums, by_src.key)  # zero rows on padded edges
+    d, dt, f32 = values.shape[1], e_new.dtype, torch.float32
+    # zero rows on padded edges; the cotangent rounded to the edge dtype
+    gc = take_rows_plain(g_sums.to(dt), by_src.key).to(f32)
     g1, g2 = gc[:, :d], gc[:, d:]
-    sig = torch.sigmoid(e_new)
-    return (g1 * values[dst] + g2) * (sig * (1.0 - sig)), g1 * sig
+    sig = torch.sigmoid(e_new.to(f32))
+    return (((g1 * values[dst].to(f32) + g2) * (sig * (1.0 - sig))).to(dt),
+            (g1 * sig).to(dt))
 
 
 def rev_bwd(e_new: torch.Tensor, g_sums: torch.Tensor, values: torch.Tensor,
@@ -91,23 +110,25 @@ def rev_bwd(e_new: torch.Tensor, g_sums: torch.Tensor, values: torch.Tensor,
     """``(d_e_new, d_v_rows)`` per canonical edge ([E, D] each), the
     cotangents of :func:`sigma_reverse_sum`'s inputs given ``g_sums``
     ([N, 2D]); ``d_v_rows``'s by_dst segment sum is ``d_values``. Zero on
-    padded edges."""
+    padded edges. bfloat16 ``e_new`` and ``values`` take an f32 ``g_sums``,
+    rounded to bf16 as it is used, and give bf16 cotangents."""
     if by_src.identity:
         raise ValueError("rev_bwd needs the by_src layout")
     if on_cpu(e_new, g_sums, values, by_src.key, by_src.offsets, by_src.order, dst):
         return rev_bwd_plain(e_new, g_sums, values, by_src, dst)
-    check_cuda_args("rev_bwd", [e_new, g_sums, values],
-                    [by_src.segment_ids, by_src.order, dst])
+    kernel = entry(e_new.dtype, REV_BWD, REV_BWD_BF16)
+    check_cuda_args(kernel.name, [e_new, values], [by_src.segment_ids, by_src.order, dst],
+                    dtype=kernel.dtype, f32=[g_sums])
     n, d = values.shape
     n_rows = e_new.shape[0]
     if by_src.offsets.shape[0] != n + 1 or e_new.shape[1] != d \
             or g_sums.shape != (n, 2 * d) or by_src.segment_ids.shape != (n_rows,):
         raise ValueError("rev_bwd: shape mismatch")
     d_e_new, d_v_rows = torch.empty_like(e_new), torch.empty_like(e_new)
-    vec4 = vec4_ok(d, e_new, g_sums, values, d_e_new, d_v_rows)
-    REV_BWD(e_new.device, e_new.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
-            by_src.segment_ids.data_ptr(), by_src.order.data_ptr(), dst.data_ptr(),
-            d_e_new.data_ptr(), d_v_rows.data_ptr(), n, n_rows, d, int(vec4))
+    kernel(e_new.device, e_new.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
+           by_src.segment_ids.data_ptr(), by_src.order.data_ptr(), dst.data_ptr(),
+           d_e_new.data_ptr(), d_v_rows.data_ptr(), n, n_rows, d,
+           int(vec_ok(d, e_new, g_sums, values, d_e_new, d_v_rows)))
     return d_e_new, d_v_rows
 
 
@@ -126,7 +147,8 @@ class SigmaReverseSum(torch.autograd.Function):
     def backward(ctx, g):
         e_new, values = ctx.saved_tensors
         d_e_new, d_v_rows = rev_bwd(e_new, g.contiguous(), values, ctx.by_src, ctx.dst)
-        d_values = segment_sum(d_v_rows, ctx.by_dst) if ctx.needs_input_grad[1] else None
+        d_values = segment_sum(d_v_rows, ctx.by_dst).to(values.dtype) \
+            if ctx.needs_input_grad[1] else None
         return d_e_new, d_values, None, None, None
 
 
@@ -161,7 +183,7 @@ def sigma_opposite(e_new: torch.Tensor, values: torch.Tensor, csr: CSR) -> torch
     sums = torch.empty((n, 2 * d), dtype=torch.float32, device=e_new.device)
     SIGMA_OPPOSITE(e_new.device, e_new.data_ptr(), values.data_ptr(),
                    csr.offsets.data_ptr(), order.data_ptr(), opp_ids.data_ptr(),
-                   sums.data_ptr(), n, d, int(vec4_ok(d, e_new, values, sums)))
+                   sums.data_ptr(), n, d, int(vec_ok(d, e_new, values, sums)))
     return sums
 
 
@@ -192,7 +214,7 @@ def opp_bwd(e_new: torch.Tensor, g_sums: torch.Tensor, values: torch.Tensor, csr
     OPP_BWD(e_new.device, e_new.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
             csr.segment_ids.data_ptr(), order.data_ptr(), opp_ids.data_ptr(),
             d_e.data_ptr(), d_v.data_ptr(), n, n_rows, d,
-            int(vec4_ok(d, e_new, g_sums, values, d_e, d_v)))
+            int(vec_ok(d, e_new, g_sums, values, d_e, d_v)))
     return d_e, d_v
 
 

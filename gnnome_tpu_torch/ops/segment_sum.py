@@ -13,7 +13,7 @@ import torch
 
 from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
-    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+    I32, I64, P, Kernel, check_cuda_args, entry, on_cpu, register, vec_ok)
 
 SEGMENT_SUM_BY_DST = register(Kernel(
     "segment_sum_by_dst", "gnnome_segment_sum_by_dst_f32", [P, P, P, I64, I32, I32],
@@ -23,6 +23,16 @@ SEGMENT_SUM_BY_SRC = register(Kernel(
     "segment_sum_by_src", "gnnome_segment_sum_by_src_f32", [P, P, P, P, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/segment_sum.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:436 segment_sum_unsorted_pallas"))
+SEGMENT_SUM_BY_DST_BF16 = register(Kernel(
+    "segment_sum_by_dst_bf16", "gnnome_segment_sum_by_dst_bf16", [P, P, P, I64, I32, I32],
+    source="gnnome_tpu_torch/csrc/segment_sum.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:1116 sorted_segment_sum_pallas",
+    dtype=torch.bfloat16))
+SEGMENT_SUM_BY_SRC_BF16 = register(Kernel(
+    "segment_sum_by_src_bf16", "gnnome_segment_sum_by_src_bf16",
+    [P, P, P, P, I64, I32, I32], source="gnnome_tpu_torch/csrc/segment_sum.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:436 segment_sum_unsorted_pallas",
+    dtype=torch.bfloat16))
 
 
 def segment_sum_plain(data: torch.Tensor, csr: CSR) -> torch.Tensor:
@@ -34,21 +44,21 @@ def segment_sum_plain(data: torch.Tensor, csr: CSR) -> torch.Tensor:
 
 def segment_sum(data: torch.Tensor, csr: CSR) -> torch.Tensor:
     """Per node ``v`` of ``csr`` (``N_pad = len(offsets) - 1`` rows) the
-    f32 sum of the rows of ``data`` ([E_pad, D], canonical order) whose key
-    is ``v``; padded edges (key ``PAD_SEGMENT``) join no sum."""
+    f32 sum of the rows of ``data`` ([E_pad, D], canonical order, float32 or
+    bfloat16) whose key is ``v``; padded edges (key ``PAD_SEGMENT``) join
+    no sum."""
     if on_cpu(data, csr.key, csr.offsets):
         return segment_sum_plain(data, csr)
     ints = [csr.offsets] if csr.identity else [csr.offsets, csr.order]
-    check_cuda_args("segment_sum", [data], ints)
+    kernel = entry(data.dtype, *((SEGMENT_SUM_BY_DST, SEGMENT_SUM_BY_DST_BF16)
+                                 if csr.identity else
+                                 (SEGMENT_SUM_BY_SRC, SEGMENT_SUM_BY_SRC_BF16)))
+    check_cuda_args(kernel.name, [data], ints, dtype=kernel.dtype)
     n, d = csr.offsets.shape[0] - 1, data.shape[1]
     if data.shape[0] != csr.key.shape[0]:
         raise ValueError("segment_sum: data rows do not match the CSR's edges")
     out = torch.empty((n, d), dtype=torch.float32, device=data.device)
-    vec4 = int(vec4_ok(d, data, out))
-    if csr.identity:
-        SEGMENT_SUM_BY_DST(data.device, data.data_ptr(), csr.offsets.data_ptr(),
-                           out.data_ptr(), n, d, vec4)
-    else:
-        SEGMENT_SUM_BY_SRC(data.device, data.data_ptr(), csr.offsets.data_ptr(),
-                           csr.order.data_ptr(), out.data_ptr(), n, d, vec4)
+    order = [] if csr.identity else [csr.order.data_ptr()]
+    kernel(data.device, data.data_ptr(), csr.offsets.data_ptr(), *order, out.data_ptr(),
+           n, d, int(vec_ok(d, data, out)))
     return out

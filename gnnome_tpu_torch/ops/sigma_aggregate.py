@@ -25,7 +25,7 @@ import torch
 
 from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
-    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec4_ok)
+    I32, I64, P, Kernel, check_cuda_args, on_cpu, register, vec_ok)
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
 from gnnome_tpu_torch.ops.take import take_rows_plain
 
@@ -100,7 +100,7 @@ def sigma_aggregate(e: torch.Tensor, values: torch.Tensor, csr: CSR,
     kernel(e.device, e.data_ptr(), values.data_ptr(), csr.offsets.data_ptr(),
            None if csr.identity else csr.order.data_ptr(),
            None if ids is None else ids.data_ptr(), sums.data_ptr(), n, d,
-           int(vec4_ok(d, e, values, sums)))
+           int(vec_ok(d, e, values, sums)))
     return sums
 
 
@@ -134,7 +134,7 @@ def sigma_aggregate_bwd(e: torch.Tensor, g_sums: torch.Tensor, values: torch.Ten
     kernel(e.device, e.data_ptr(), g_sums.data_ptr(), values.data_ptr(),
            csr.segment_ids.data_ptr(), None if csr.identity else csr.order.data_ptr(),
            None if ids is None else ids.data_ptr(), d_e.data_ptr(), d_v.data_ptr(),
-           n, n_rows, d, int(vec4_ok(d, e, g_sums, values, d_e, d_v)))
+           n, n_rows, d, int(vec_ok(d, e, g_sums, values, d_e, d_v)))
     return d_e, d_v
 
 

@@ -16,8 +16,11 @@ Counterpart of ``gnnome_tpu/train/loop.py`` (reference ``train.train``,
   * a checkpoint every epoch and best-on-valid-loss weights
     (``train.py:525-528``), in the JAX package's format, with resume.
 
-bf16 compute is not ported: :func:`train` refuses ``compute_dtype`` other
-than float32 rather than train in another precision.
+``cfg.train.compute_dtype = "bfloat16"`` trains and scores the BatchNorm
+model with narrow gathers (the default ``Config``'s) in bf16 with f32
+master weights and Adam, as the JAX package does; :func:`train` refuses it
+for the LayerNorm model and the wide gathers, whose kernels have no bf16
+entries yet, rather than train something else.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ from gnnome_tpu_torch.evaluation.metrics import (
     classification_metrics,
     confusion_counts,
 )
-from gnnome_tpu_torch.models.model import count_params, init_model_params, model_forward
+from gnnome_tpu_torch.models.model import (
+    compute_dtype_of, count_params, init_model_params, model_forward)
 from gnnome_tpu_torch.train import checkpoint as ckpt
 from gnnome_tpu_torch.train.checkpoint import iter_leaves
 from gnnome_tpu_torch.utils.logging import MetricsLogger
@@ -106,14 +110,15 @@ def resolve_perf(cfg_train, graph: AssemblyGraph):
 
 def train_step(params, opt: torch.optim.Adam, graph: AssemblyGraph, e_feat, pe, y,
                pos_weight, batch_norm: bool = True, remat: str = "layer",
-               remat_group: int = 4,
-               wide_gathers=False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One full-graph optimization step; ``params`` are updated in place.
-    Returns ``(loss, counts)`` as device tensors (nothing is fetched)."""
+               remat_group: int = 4, wide_gathers=False,
+               compute_dtype: str = "float32") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One full-graph optimization step; ``params`` are updated in place
+    (f32 master weights and Adam under any ``compute_dtype``). Returns
+    ``(loss, counts)`` as device tensors (nothing is fetched)."""
     opt.zero_grad(set_to_none=True)
     logits = model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
                            remat=remat, remat_group=remat_group,
-                           wide_gathers=wide_gathers)
+                           wide_gathers=wide_gathers, compute_dtype=compute_dtype)
     loss = bce_with_logits(logits, y, graph.edge_mask, pos_weight)
     loss.backward()
     opt.step()
@@ -124,10 +129,10 @@ def train_step(params, opt: torch.optim.Adam, graph: AssemblyGraph, e_feat, pe, 
 
 @torch.no_grad()
 def eval_step(params, graph: AssemblyGraph, e_feat, pe, y, pos_weight,
-              batch_norm: bool = True, wide_gathers=False):
+              batch_norm: bool = True, wide_gathers=False, compute_dtype: str = "float32"):
     """``(loss, counts, logits)`` of one forward, without gradients."""
     logits = model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
-                           wide_gathers=wide_gathers)
+                           wide_gathers=wide_gathers, compute_dtype=compute_dtype)
     loss = bce_with_logits(logits, y, graph.edge_mask, pos_weight)
     return loss, confusion_counts(logits, y, graph.edge_mask), logits
 
@@ -159,12 +164,14 @@ def _epoch_pass(samples, params, opt, pos_weight, cfg: Config, train_mode: bool,
                 loss, counts = train_step(
                     params, opt, piece.graph, piece.e_feat, piece.pe, piece.y,
                     pos_weight, batch_norm=cfg.model.batch_norm, remat=remat,
-                    remat_group=group, wide_gathers=wide)
+                    remat_group=group, wide_gathers=wide,
+                    compute_dtype=cfg.train.compute_dtype)
             else:
                 loss, counts, _ = eval_step(params, piece.graph, piece.e_feat,
                                             piece.pe, piece.y, pos_weight,
                                             batch_norm=cfg.model.batch_norm,
-                                            wide_gathers=wide)
+                                            wide_gathers=wide,
+                                            compute_dtype=cfg.train.compute_dtype)
             # one device fetch per step: loss and the four counts packed
             packed = torch.stack([loss, *(counts[k] for k in _COUNT_KEYS)]).cpu().numpy()
             g_losses.append(float(packed[0]))
@@ -203,11 +210,12 @@ def make_cluster_fns(cfg: Config):
 
 
 def _check_supported(cfg: Config) -> None:
-    """Refuse what the port has not got, rather than train something else."""
-    tc = cfg.train
-    if tc.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype={tc.compute_dtype!r}: the port "
-                                  "trains in float32 only (bf16 is a later slice)")
+    """Refuse what the port has not got, rather than train something else:
+    bf16 with the LayerNorm model or wide gathers (``compute_dtype_of``).
+    ``"auto"`` gathers are narrow (:func:`resolve_perf`)."""
+    wide = cfg.train.wide_gathers
+    compute_dtype_of(cfg.train.compute_dtype, cfg.model.batch_norm,
+                     False if wide == "auto" else wide)
 
 
 def train(train_path: str, valid_path: Optional[str] = None, out: str = "model",

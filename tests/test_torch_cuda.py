@@ -423,3 +423,174 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         take_rows(table.double(), g.src)  # no f64 kernel, and no fallback
     with pytest.raises(ValueError):
         take_rows(table, g.src.cpu())  # mixed devices
+
+
+# ---------------------------------------------------------------------------
+# the bf16 entries (compute_dtype="bfloat16"): bf16 data, f32 sums
+# ---------------------------------------------------------------------------
+# A bf16 output is held to one bf16 ulp of the larger magnitude plus 1e-5:
+# kernel and plain version round the same f32 value, which differs by a few
+# f32 ulps (sum order, a fused multiply-add). f32 outputs keep TOL.
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def _assert_bf16_close(got, ref, atol=1e-5):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    g, r = got.float(), ref.float()
+    bound = _bf16_ulp(torch.maximum(g.abs(), r.abs())) + atol
+    assert bool(((g - r).abs() <= bound).all()), float((g - r).abs().max())
+
+
+def _bf(rng, *shape, device, scale=1.0):
+    return _randn(rng, *shape, device=device, scale=scale).to(torch.bfloat16)
+
+
+def _launched(name):
+    """The launches of entry ``name`` in the block, and of no other entry."""
+    class Count:
+        def __enter__(self):
+            self.before = {k: v.launches for k, v in KERNELS.items()}
+            return self
+
+        def __exit__(self, *exc):
+            torch.cuda.synchronize()
+            grew = {k for k, v in KERNELS.items() if v.launches != self.before[k]}
+            assert grew == {name}, grew
+    return Count()
+
+
+def _gate_front_bf16_case(cuda, rng, n, n_rows, n_real, d, src, dst):
+    args = (_bf(rng, n, d, device=cuda), _bf(rng, n, d, device=cuda),
+            _bf(rng, n_rows, d, device=cuda), _bf(rng, d, d, device=cuda, scale=d ** -0.5),
+            _bf(rng, d, device=cuda), src, dst, n_real)
+    with _launched("gate_front_bf16"):
+        gate, mom = gate_front(*args)
+    ref_gate, ref_mom = gate_front_plain(*args)
+    # where the product's f32 sum order flips its rounding, proj + b3 and
+    # the gate may move by an ulp each
+    proj = args[2].float() @ args[3].float()
+    pb = proj.to(torch.bfloat16).float() + args[4].float()
+    g, r = gate.float(), ref_gate.float()
+    err = (g - r).abs()
+    assert bool((err <= _bf16_ulp(proj) + _bf16_ulp(pb)
+                 + _bf16_ulp(torch.maximum(g.abs(), r.abs()))).all())
+    assert float((err > 0).float().mean()) <= 1e-2
+    # the moments of the kernel's own rounded gate
+    real = g[:n_real].double()
+    own = torch.stack([real.sum(0), (real * real).sum(0)]).float()
+    torch.testing.assert_close(mom / n_real, own / n_real, **TOL)
+    return gate, ref_mom
+
+
+@pytest.mark.parametrize("d", [30, 64, 256])
+def test_bf16_forward_kernels(cuda, d):
+    g, rng = _graph(21, device=cuda)
+    n, e_pad = g.n_nodes_padded, g.n_edges_padded
+    table = _bf(rng, n, d, device=cuda)
+    for ids in (g.src, g.by_src.key):
+        with _launched("take_rows_bf16"):
+            out = take_rows(table, ids)
+        assert torch.equal(out, take_rows_plain(table, ids))
+    gate, _ = _gate_front_bf16_case(cuda, rng, n, e_pad, g.n_edges, d, g.src, g.dst)
+    affine = torch.stack([
+        torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal(d).astype(np.float32))]).to(cuda)
+    args = (gate, _bf(rng, e_pad, d, device=cuda), table, affine, g.by_dst, g.src)
+    with _launched("gate_sigma_gather_bf16"):
+        sums, e_new = gate_sigma_gather(*args)
+    ref_sums, ref_e_new = gate_sigma_gather_plain(*args)
+    _assert_bf16_close(e_new, ref_e_new)
+    torch.testing.assert_close(sums, ref_sums, **TOL)
+    args = (e_new, table, g.by_src, g.dst)
+    with _launched("sigma_reverse_sum_bf16"):
+        sums = sigma_reverse_sum(*args)
+    torch.testing.assert_close(sums, sigma_reverse_sum_plain(*args), **TOL)
+
+
+@pytest.mark.parametrize("n_rows,n_real,d", [(1037, 300, 256), (1037, 1037, 512),
+                                             (1037, 300, 30)])
+def test_gate_front_bf16_kernel_ragged(cuda, n_rows, n_real, d):
+    """A ragged last 64-row tile, real rows below the padded count, and
+    d = 512 (the W3 slice at its largest, one block an SM)."""
+    rng = np.random.default_rng(25)
+    n = 300
+    ids = [torch.from_numpy(rng.integers(0, n, n_rows).astype(np.int32)).to(cuda)
+           for _ in range(2)]
+    _gate_front_bf16_case(cuda, rng, n, n_rows, n_real, d, *ids)
+
+
+@pytest.mark.parametrize("d", [30, 64, 256])
+def test_bf16_backward_kernels(cuda, d):
+    g, rng = _graph(22, device=cuda)
+    n, e_pad = g.n_nodes_padded, g.n_edges_padded
+    data = _bf(rng, e_pad, d, device=cuda)
+    for csr, name in ((g.by_dst, "segment_sum_by_dst_bf16"),
+                      (g.by_src, "segment_sum_by_src_bf16")):
+        with _launched(name):
+            got = segment_sum(data, csr)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, segment_sum_plain(data, csr), **TOL)
+    args = (data, _bf(rng, e_pad, d, device=cuda), _randn(rng, 2, d, device=cuda), g.n_edges)
+    with _launched("gate_front_bwd_bf16"):
+        d_total, d_bias3 = gate_front_bwd(*args)
+    ref_total, ref_bias3 = gate_front_bwd_plain(*args)
+    _assert_bf16_close(d_total, ref_total)
+    torch.testing.assert_close(d_bias3 / e_pad, ref_bias3 / e_pad, **TOL)
+    affine = torch.stack([
+        torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal(d).astype(np.float32))]).to(cuda)
+    e_new, g_sums = _bf(rng, e_pad, d, device=cuda), _randn(rng, n, 2 * d, device=cuda)
+    values = _bf(rng, n, d, device=cuda)
+    args = (_bf(rng, e_pad, d, device=cuda), e_new, data, g_sums, values, affine, g.by_dst,
+            g.src)
+    with _launched("epilog_bwd_bf16"):
+        got = epilog_bwd(*args)
+    ref = epilog_bwd_plain(*args)
+    for a, b in zip(got[:3], ref[:3]):
+        _assert_bf16_close(a, b)
+    torch.testing.assert_close(got[3] / e_pad, ref[3] / e_pad, **TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, epilog_bwd(*args)))
+    args = (e_new, g_sums, values, g.by_src, g.dst)
+    with _launched("rev_bwd_bf16"):
+        got = rev_bwd(*args)
+    for a, b in zip(got, rev_bwd_plain(*args)):
+        _assert_bf16_close(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got, rev_bwd(*args)))
+
+
+def test_bf16_model_step_runs_the_bf16_entries(cuda):
+    """One bf16 autograd step of a 2-layer BatchNorm model on the card: the
+    launch counts of the bf16 entries (and of no f32 entry), f32 gradients
+    on the f32 leaves, and two bf16 forwards bit for bit alike."""
+    g, rng = _graph(23, device=cuda)
+    cfg = ModelConfig(hidden_features=64, num_gnn_layers=2, nb_pos_enc=4)
+    e_feat = torch.from_numpy(rng.standard_normal((g.n_edges_padded, 2)).astype(np.float32))
+    pe = torch.from_numpy(rng.standard_normal((g.n_nodes_padded, 6)).astype(np.float32))
+    y = torch.from_numpy((rng.random(g.n_edges_padded) < 0.7).astype(np.float32)).to(cuda)
+    params = init_model_params(torch.Generator().manual_seed(0), cfg, cuda)
+    inputs = (g, e_feat.to(cuda), pe.to(cuda))
+    with torch.no_grad():
+        assert torch.equal(model_forward(params, *inputs, compute_dtype="bfloat16"),
+                           model_forward(params, *inputs, compute_dtype="bfloat16"))
+    leaves = dict(iter_leaves(params))
+    for leaf in leaves.values():
+        leaf.requires_grad_(True)
+    for k in KERNELS.values():
+        k.launches = 0
+    logits = model_forward(params, *inputs, remat="layer", compute_dtype="bfloat16")
+    bce_with_logits(logits, y, g.edge_mask, torch.tensor(0.5, device=cuda)).backward()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+    layers = cfg.num_gnn_layers
+    assert launches == {"take_rows_bf16": 2, "gate_front_bf16": 2 * layers,
+                        "gate_sigma_gather_bf16": 2 * layers,
+                        "sigma_reverse_sum_bf16": 2 * layers, "gate_front_bwd_bf16": layers,
+                        "epilog_bwd_bf16": layers, "rev_bwd_bf16": layers,
+                        "segment_sum_by_dst_bf16": 2 * layers + 1,
+                        "segment_sum_by_src_bf16": 2 * layers + 1}, launches
+    assert logits.dtype == torch.float32
+    assert all(v.grad.dtype == torch.float32 and bool(torch.isfinite(v.grad).all())
+               for v in leaves.values())

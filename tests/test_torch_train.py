@@ -36,10 +36,12 @@ Tolerances:
     own xla and Pallas backends agree there only because they run the same
     XLA code for that layer). Measured worst leaf 1.7e-2; chip_smoke.py
     holds the card against the CPU to the same 5e-2;
-  * 3 Adam steps: losses and parameters to 1e-5, except those same biases:
-    Adam divides their noise gradient by |g| + 1e-8, so either package
-    moves them by noise of up to lr per step; they are held to within
-    3·lr of their start on both sides.
+  * 3 Adam steps: losses and parameters to 1e-5, except those same biases
+    and every element whose first-step JAX gradient is within 10·eps of
+    zero (eps = 1e-8, Adam's): Adam divides their noise gradient by
+    |g| + 1e-8, so either package moves them by noise of up to lr per step;
+    they are held to within steps·lr of their start on both sides. The
+    first step's gradients are held per leaf as above.
 """
 import os
 
@@ -369,13 +371,41 @@ def test_remat_modes_give_the_same_gradients():
         model_forward(params_from_jax(arrays, device="cpu"), *port_in[:3], remat="scan")
 
 
-def _check_params(got, want, start):
+# Adam's first update is lr·g/(|g| + eps) (eps = 1e-8): where the first
+# step's gradient is within AT_EPS·eps of zero, the f32 rounding noise of g
+# (up to ~1e-9 between the packages' sum orders, measured) decides what
+# fraction of lr the element moves (one element of ['layers'][2]['A3']['w']
+# with |g| ~ 7e-9 moved by 0.399·lr here and 0.428·lr in JAX). Outside that
+# band the update's sensitivity, lr·eps·δ/(|g| + eps)², stays below 1e-6
+# for noise δ up to 1e-8, and TOL holds.
+AT_EPS = 10
+ADAM_EPS = 1e-8
+
+
+def _jax_first_grad(jparams, jax_in):
+    """The gradient of JAX's first step (``train_step``'s loss, xla)."""
+    jg, je, jpe, jy = jax_in
+
+    def loss_fn(p):
+        return jax_bce(jax_forward(p, jg, je, jpe, backend="xla"), jy, jg.edge_mask, 0.5)
+
+    return _flatten(jax.grad(loss_fn)(jparams))
+
+
+def _check_params(got, want, start, first_grad, n_steps):
+    """Parameters after ``n_steps`` Adam steps, the port's against JAX's:
+    TOL per element, but for the biases a BatchNorm cancels and the
+    elements whose first gradient is within AT_EPS·eps of zero, which are
+    held to n_steps·lr of their start on both sides (Adam moves an element
+    by at most ~lr a step)."""
     for k, w in want.items():
+        noise = np.abs(first_grad[k]) <= AT_EPS * ADAM_EPS
         if k.endswith(BN_CANCELLED):
-            assert np.abs(got[k] - start[k]).max() <= 3 * LR * (1 + 1e-3), k
-            assert np.abs(w - start[k]).max() <= 3 * LR * (1 + 1e-3), k
-        else:
-            np.testing.assert_allclose(got[k], w, **TOL, err_msg=k)
+            noise[...] = True
+        for p in (got[k], w):
+            assert np.abs(p - start[k])[noise].max(initial=0.0) \
+                <= n_steps * LR * (1 + 1e-3), k
+        np.testing.assert_allclose(got[k][~noise], w[~noise], **TOL, err_msg=k)
 
 
 def _jax_steps(jparams, jax_in, n_steps, opt_state=None):
@@ -399,12 +429,15 @@ def test_three_adam_steps_match_jax():
     cfg, jax_in, port_in = _problem(np.random.default_rng(9), 32)
     jparams = jax_init(jax.random.PRNGKey(3), cfg)
     start = _flatten(jparams)
+    first_grad = _jax_first_grad(jparams, jax_in)
+    # the first step's gradients themselves, per leaf, as in test_model_grads_match_jax
+    _check_grads(_port_grads(params_from_jax(start, device="cpu"), port_in, 0.5), first_grad)
     params = params_from_jax(start, device="cpu")
     opt = loop.make_optimizer(params, LR)
     losses = _port_steps(params, opt, port_in, 3)
     jparams, _, jlosses = _jax_steps(jparams, jax_in, 3)
     np.testing.assert_allclose(losses, jlosses, **TOL)
-    _check_params(ckpt.flatten_params(params), _flatten(jparams), start)
+    _check_params(ckpt.flatten_params(params), _flatten(jparams), start, first_grad, 3)
 
 
 def test_checkpoints_resume_across_packages(tmp_path):
@@ -413,6 +446,7 @@ def test_checkpoints_resume_across_packages(tmp_path):
     cfg, jax_in, port_in = _problem(np.random.default_rng(13), 32, layers=2)
     jparams0 = jax_init(jax.random.PRNGKey(4), cfg)
     start = _flatten(jparams0)
+    first_grad = _jax_first_grad(jparams0, jax_in)
     jparams2, _, jlosses = _jax_steps(jparams0, jax_in, 2)
 
     # JAX writes after step 1, the port resumes and takes step 2
@@ -425,7 +459,7 @@ def test_checkpoints_resume_across_packages(tmp_path):
     assert (epoch, meta["lr"], opt.param_groups[0]["lr"]) == (0, LR, pytest.approx(LR))
     loss = _port_steps(params, opt, port_in, 1)
     np.testing.assert_allclose(loss, jlosses[1:], **TOL)
-    _check_params(ckpt.flatten_params(params), _flatten(jparams2), start)
+    _check_params(ckpt.flatten_params(params), _flatten(jparams2), start, first_grad, 2)
 
     # the port writes after step 1, JAX resumes and takes step 2
     params = params_from_jax(start, device="cpu")
@@ -445,7 +479,7 @@ def test_checkpoints_resume_across_packages(tmp_path):
     params = params_from_jax(start, device="cpu")
     opt = loop.make_optimizer(params, LR)
     _port_steps(params, opt, port_in, 2)
-    _check_params(_flatten(jp), ckpt.flatten_params(params), start)
+    _check_params(_flatten(jp), ckpt.flatten_params(params), start, first_grad, 2)
 
 
 @pytest.fixture(scope="module")
@@ -507,8 +541,10 @@ def test_train_loop_overfits_and_resumes(genome_root, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(genome_root, tmp_path, monkeypatch):
-    """bf16 is refused; the default ClusterGCN regime (500 parts, batches of
-    50 clusters, jitter 100) is accepted and trains on pieces."""
+    """bf16 with the LayerNorm model is refused (bf16 covers the BatchNorm
+    model with narrow gathers: tests/test_torch_bf16.py); the default
+    ClusterGCN regime (500 parts, batches of 50 clusters, jitter 100) is
+    accepted and trains on pieces."""
     from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
 
     cfg = _small_cfg(tmp_path)
@@ -530,7 +566,8 @@ def test_train_refuses_what_is_not_ported(genome_root, tmp_path, monkeypatch):
     # several pieces, which cover the graph once
     assert len(piece_nodes) > 1 and sum(piece_nodes) == s.graph.n_nodes
     cfg = _small_cfg(tmp_path, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="float32"):
+    cfg.model.batch_norm = False
+    with pytest.raises(NotImplementedError, match="LayerNorm and wide-gather"):
         loop.train(genome_root, None, overfit=True, cfg=cfg, device="cpu")
     assert JaxConfig().train.num_parts_train == Config().train.num_parts_train > 1
 
