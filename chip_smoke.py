@@ -76,25 +76,32 @@ stopped); any failure raises and exits non-zero:
 9. pipeline — ``example.synthetic_example`` on the card (native simulator
              and builder, 15 epochs of an 8-layer, 128-wide model, then
              ``predict``): an assembly with contigs.
-10. bf16 — ``compute_dtype="bfloat16"`` on the BatchNorm model with narrow
-             gathers: the nine bf16 entries (rows 1-9) against their plain
-             versions on bf16 inputs at the main path's shapes (the local
-             graph, D = 256, the score head's gathers at 64) and on the
-             most padded piece's shape, bf16 outputs to one bf16 ulp and
-             f32 outputs to 1e-5 (the gate front to the bound its product's
-             rounding allows, its moments to those of its own bf16 gate);
-             16-layer scoring with the shipped weights through
-             ``eval_step`` (launches, ms, peak, two forwards bit for bit
-             alike, the probabilities against the f32 forward); the
-             full-scale bf16 training steps under ``"layer"`` and ``"none"``
-             (launches, ms, edges/s, peak, idle share, the four losses
-             beside phase 4's f32 losses); one ClusterGCN training epoch
-             under the default ``Config`` in bf16 (ms per piece step).
+10. bf16 — ``compute_dtype="bfloat16"``: the seventeen bf16 entries
+             (rows 1-9, then rows 10 and 11 and their backwards) against
+             their plain versions on bf16 inputs at the main paths' shapes
+             (the local graph, D = 256, the score head's gathers at 64) and
+             on the most padded piece's shape, bf16 outputs to one bf16 ulp
+             and f32 outputs to 1e-5 (the gate front to the bound its
+             product's rounding allows, its moments to those of its own
+             bf16 gate), every edge walk alike bit for bit in two calls;
+             16-layer scoring of the BatchNorm model with the shipped
+             weights through ``eval_step`` and of the seeded LayerNorm
+             model (launches of bf16 entries only, ms, peak, two forwards
+             bit for bit alike, the probabilities against the f32 forward);
+             the full-scale bf16 training steps of phase 4's five paths
+             (BatchNorm under ``"layer"`` and ``"none"``, LayerNorm, wide,
+             LayerNorm + wide under ``"layer"``: launches of bf16 entries
+             only, ms, edges/s, peak, idle share, the four losses beside
+             phase 4's f32 losses); the bf16 gate front at D = 640 (its W3
+             slice in K tiles) against its plain version and a bf16
+             BatchNorm step of a 4-layer, D = 640 model; one ClusterGCN
+             training epoch under the default ``Config`` in bf16 (ms per
+             piece step).
 
 The line before last is the kernel table as JSON, the bf16 entries after
 the f32 ones (``launches``: one training step, under ``remat="layer"``,
-of the first of the BatchNorm, LayerNorm, wide, LayerNorm + wide and bf16
-BatchNorm steps that runs the kernel; every
+of the first of the BatchNorm, LayerNorm, wide and LayerNorm + wide steps,
+in f32 and then in bf16, that runs the kernel; every
 count in ``launches_by_path``, the ClusterGCN piece step and phases 7
 and 9 as a whole among them; rows 12-13 are not on a model path, and say
 so), the one before that the card's name and power limit; the last line is
@@ -284,13 +291,21 @@ def check_gate_front_bf16(torch, got, ref, args) -> float:
 
 
 def phase_parity_bf16(torch, graph, seed: int) -> list[dict]:
-    """The bf16 entries of rows 1-9 against their plain versions at the
-    BatchNorm model's shapes (D = 256, the score head's gathers at 64), on
-    bf16 inputs; the two edge walks (rows 8, 9) also alike bit for bit in
-    two calls. Bounds count 2 bytes a bf16 element, 4 an f32 one or an id."""
+    """The bf16 entries against their plain versions at the model's shapes
+    (D = 256, the score head's gathers at 64), on bf16 inputs: rows 1-9
+    (the BatchNorm narrow path), then rows 10 and 11 and their backwards
+    (the LayerNorm and wide paths); every edge walk also alike bit for bit
+    in two calls. Bounds count 2 bytes a bf16 element, 4 an f32 one or an
+    id."""
     from gnnome_tpu_torch.ops.gate_epilog import (
-        EPILOG_BWD_BF16, GATE_SIGMA_GATHER_BF16, epilog_bwd, epilog_bwd_plain,
-        gate_sigma_gather, gate_sigma_gather_plain)
+        EPILOG_BWD_BF16, EPILOG_BWD_PREGATHERED_BF16, GATE_SIGMA_AGGREGATE_BF16,
+        GATE_SIGMA_GATHER_BF16, epilog_bwd, epilog_bwd_plain, gate_sigma_gather,
+        gate_sigma_gather_plain)
+    from gnnome_tpu_torch.ops.sigma_aggregate import (
+        SIGMA_AGGREGATE_BF16, SIGMA_AGGREGATE_BWD_BF16, SIGMA_AGGREGATE_BWD_BY_SRC_BF16,
+        SIGMA_AGGREGATE_BWD_GATHER_BF16, SIGMA_AGGREGATE_BY_SRC_BF16,
+        SIGMA_AGGREGATE_GATHER_BF16, sigma_aggregate, sigma_aggregate_bwd,
+        sigma_aggregate_bwd_plain, sigma_aggregate_plain)
     from gnnome_tpu_torch.ops.gate_front import (
         GATE_FRONT_BF16, GATE_FRONT_BWD_BF16, gate_front, gate_front_bwd, gate_front_bwd_plain,
         gate_front_plain)
@@ -417,6 +432,64 @@ def phase_parity_bf16(torch, graph, seed: int) -> list[dict]:
                lambda fn=fn, args=args: fn(*args), lambda plain=plain, args=args: plain(*args),
                None, n_bytes, n_ops)
         del got, ref
+    del data, walks
+
+    # 10: the σ-aggregate's three forms, f32 sums of bf16 summands: by_dst
+    # over the node table at src (LayerNorm h_fwd), by_dst and by_src over
+    # pregathered rows (the wide paths); then their backward walks
+    vals = randn(e, d)
+    forms = ((SIGMA_AGGREGATE_GATHER_BF16, SIGMA_AGGREGATE_BWD_GATHER_BF16, graph.by_dst,
+              values, graph.src, u_src * d, u_dst, (n + 1 + er) * 4, e + er),
+             (SIGMA_AGGREGATE_BF16, SIGMA_AGGREGATE_BWD_BF16, graph.by_dst, vals, None,
+              er * d, u_dst, (n + 1) * 4, e),
+             (SIGMA_AGGREGATE_BY_SRC_BF16, SIGMA_AGGREGATE_BWD_BY_SRC_BF16, graph.by_src, vals,
+              None, er * d, u_src, (n + 1 + er) * 4, 2 * e))
+    for fwd, _, csr, v, ids, table, _, id_bytes, _ in forms:
+        args = (e_new, v, csr, ids)
+        err = check_close(fwd.name, torch, sigma_aggregate(*args), sigma_aggregate_plain(*args),
+                          KERNEL_TOL, KERNEL_TOL)
+        record(fwd, err, f32_tol, lambda args=args: sigma_aggregate(*args),
+               lambda args=args: sigma_aggregate_plain(*args), None,
+               (er * d + table) * 2 + 2 * n * d * 4 + id_bytes, 5 * e * d)
+    for _, bwd, csr, v, ids, table, g_rows, _, id_count in forms:
+        args = (e_new, g_sums, v, csr, ids)
+        got, ref = sigma_aggregate_bwd(*args), sigma_aggregate_bwd_plain(*args)
+        err = max(check_bf16(f"{bwd.name}.{i}", torch, a, b) for i, (a, b) in
+                  enumerate(zip(got, ref)))
+        if not all(torch.equal(a, b) for a, b in zip(got, sigma_aggregate_bwd(*args))):
+            raise AssertionError(f"{bwd.name}: a second call gave other values")
+        record(bwd, err, f"{ulp_tol}; two calls alike",
+               lambda args=args: sigma_aggregate_bwd(*args),
+               lambda args=args: sigma_aggregate_bwd_plain(*args), None,
+               (er * d + 2 * e * d + table) * 2 + g_rows * 2 * d * 4 + id_count * 4,
+               12 * e * d)
+        del got, ref
+
+    # 11: the gate epilog over pregathered values (σ of the f32 e_new,
+    # bf16 summands), and its VJP, which recomputes e_new from e_in
+    gate, e_in = randn(e, d), randn(e, d)
+    args = (gate, e_in, vals, affine, graph.by_dst)
+    (sums, e_new2), (ref_sums, ref_e_new) = gate_sigma_gather(*args), \
+        gate_sigma_gather_plain(*args)
+    err = max(check_close("gate_sigma_aggregate_bf16.sums", torch, sums, ref_sums, KERNEL_TOL,
+                          KERNEL_TOL),
+              check_bf16("gate_sigma_aggregate_bf16.e_new", torch, e_new2, ref_e_new))
+    record(GATE_SIGMA_AGGREGATE_BF16, err, f"{ulp_tol} on e_new, {f32_tol} on sums",
+           lambda: gate_sigma_gather(*args), lambda: gate_sigma_gather_plain(*args), None,
+           4 * e * d * 2 + (2 * n * d + 2 * d) * 4 + (n + 1) * 4, 8 * e * d)
+    del sums, e_new2, ref_sums, ref_e_new
+    args = (gate, e_in, randn(e, d), g_sums, vals, affine, graph.by_dst, None)
+    got, ref = epilog_bwd(*args), epilog_bwd_plain(*args)
+    err = max(max(check_bf16(f"epilog_bwd_pregathered_bf16.{i}", torch, a, b)
+                  for i, (a, b) in enumerate(zip(got[:3], ref[:3]))),
+              check_close("epilog_bwd_pregathered_bf16.d_affine/E", torch, got[3] / e,
+                          ref[3] / e, KERNEL_TOL, KERNEL_TOL))
+    if not all(torch.equal(a, b) for a, b in zip(got, epilog_bwd(*args))):
+        raise AssertionError("epilog_bwd_pregathered_bf16: a second call gave other values")
+    record(EPILOG_BWD_PREGATHERED_BF16, err,
+           f"{ulp_tol} on [E, D], {f32_tol} on d_affine/E; two calls alike",
+           lambda: epilog_bwd(*args), lambda: epilog_bwd_plain(*args), None,
+           (5 * e * d + 2 * er * d) * 2 + (u_dst * 2 * d + 4 * d) * 4 + e * 4, 18 * e * d)
     return rows_out
 
 
@@ -753,16 +826,26 @@ def read_launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def phase_scoring(torch, graph, params, cfg, seed: int, variant: str) -> dict:
+def phase_scoring(torch, graph, params, cfg, seed: int, variant: str,
+                  compute_dtype: str = "float32") -> dict:
+    """One forward's launches, three forwards' ms (each bit for bit the
+    first's), peak memory and a profile; under bf16 the probabilities are
+    also printed beside the f32 forward's."""
     from gnnome_tpu_torch.data.synthetic import bench_features
     from gnnome_tpu_torch.decode.inference import score_graph
+    from gnnome_tpu_torch.models.model import model_forward
 
     batch_norm, wide = VARIANTS[variant]
     e_feat, pe = bench_features(graph, seed, cfg.model.nb_pos_enc)
+    bf16 = compute_dtype != "float32"
 
-    def forward():
-        return score_graph(params, graph, e_feat, pe, batch_norm=batch_norm,
-                           wide_gathers=wide)
+    def forward(dtype=compute_dtype):
+        if dtype == "float32":
+            return score_graph(params, graph, e_feat, pe, batch_norm=batch_norm,
+                               wide_gathers=wide)
+        with torch.no_grad():  # score_graph's forward, in bf16
+            return model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
+                                 wide_gathers=wide, compute_dtype=dtype)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -772,7 +855,7 @@ def phase_scoring(torch, graph, params, cfg, seed: int, variant: str) -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches in one forward: { {k: v for k, v in launches.items() if v} }")
-    expect = expected_launches(variant, remat=None)
+    expect = expected_launches(f"{variant}_bf16" if bf16 else variant, remat=None)
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
     if tuple(logits.shape) != (graph.n_edges_padded,) or not torch.isfinite(logits).all():
@@ -794,7 +877,14 @@ def phase_scoring(torch, graph, params, cfg, seed: int, variant: str) -> dict:
         f"forward equal bit for bit")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB; logits finite, "
         f"mean {float(logits.mean()):.4f} std {float(logits.std()):.4f}")
-    profile_run(torch, forward, "forward")
+    if bf16:
+        ref = forward("float32")
+        real = slice(0, graph.n_edges)
+        log(f"  max |prob bf16 - prob f32| "
+            f"{float((torch.sigmoid(logits[real]) - torch.sigmoid(ref[real])).abs().max()):.4e}"
+            f", max |logit difference| {float((logits[real] - ref[real]).abs().max()):.4e}")
+        del ref
+    profile_run(torch, forward, f"{'bf16 ' if bf16 else ''}forward")
     return launches
 
 
@@ -807,9 +897,6 @@ FWD_PER_LAYER = {
     "wide": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_aggregate_by_src": 1},
     "wide_src": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_reverse_sum": 1},
     "layernorm_wide": {"take_rows": 2, "sigma_aggregate": 1, "sigma_aggregate_by_src": 1},
-    # compute_dtype="bfloat16": the same kernels' bf16 entries
-    "batchnorm_bf16": {"gate_front_bf16": 1, "gate_sigma_gather_bf16": 1,
-                       "sigma_reverse_sum_bf16": 1},
 }
 BWD_PER_LAYER = {
     # gate front's d_b1h / d_b2h, the epilog's d_values by src, the reverse
@@ -826,9 +913,11 @@ BWD_PER_LAYER = {
                  "segment_sum_by_dst": 2, "segment_sum_by_src": 1},
     "layernorm_wide": {"sigma_aggregate_bwd": 1, "sigma_aggregate_bwd_by_src": 1,
                        "segment_sum_by_dst": 1, "segment_sum_by_src": 1},
-    "batchnorm_bf16": {"gate_front_bwd_bf16": 1, "epilog_bwd_bf16": 1, "rev_bwd_bf16": 1,
-                       "segment_sum_by_dst_bf16": 2, "segment_sum_by_src_bf16": 2},
 }
+# compute_dtype="bfloat16": the same kernels' bf16 entries, and no f32 entry
+for _table in (FWD_PER_LAYER, BWD_PER_LAYER):
+    _table.update({f"{v}_bf16": {f"{k}_bf16": c for k, c in counts.items()}
+                   for v, counts in list(_table.items())})
 
 
 def expected_launches(variant: str, remat, layers: int = LAYERS) -> dict:
@@ -950,8 +1039,8 @@ def kernel_group(name: str) -> str:
     if base in PORT_KERNELS:  # a bf16 instance names __nv_bfloat16 (or is gate_front_bf16)
         bf16 = "bfloat16" in name or base == "gate_front_bf16_kernel"
         return f"port: {PORT_KERNELS[base]}{' (bf16)' if bf16 else ''}"
-    if "gemm" in name.lower() or "cutlass" in name.lower():
-        return "cuBLAS products"
+    if "gemm" in name.lower() or "cutlass" in name.lower() or name.startswith("nvjet"):
+        return "cuBLAS products"  # nvjet_*: cuBLASLt's kernels for Hopper
     if "multi_tensor_apply" in name:
         return "Adam (torch.optim, foreach)"
     return "other PyTorch kernels"
@@ -1413,17 +1502,18 @@ def phase_pipeline(torch, device="cuda") -> dict:
 
 
 def phase_bf16(torch, seed: int, f32_losses: dict, device="cuda") -> tuple[list, dict]:
-    """compute_dtype="bfloat16" on the BatchNorm model with narrow gathers:
-    the bf16 entries against their plain versions at the main path's shapes
-    and on the most padded ClusterGCN piece; scoring with the shipped
-    weights through ``eval_step`` (launches, ms, peak, probabilities against
-    the f32 forward, two forwards alike bit for bit); the full-scale
-    training steps under ``"layer"`` and ``"none"`` beside phase 4's f32
-    losses; one ClusterGCN epoch under the default Config. Returns the
-    kernel rows and the launch counts by path."""
+    """compute_dtype="bfloat16": the bf16 entries against their plain
+    versions at the main paths' shapes and on the most padded ClusterGCN
+    piece; scoring with the shipped BatchNorm weights through ``eval_step``
+    and of the seeded LayerNorm model (launches, ms, peak, probabilities
+    against the f32 forward, two forwards alike bit for bit); the
+    full-scale training steps of phase 4's paths beside its f32 losses; the
+    D = 640 gate front and step; one ClusterGCN epoch under the default
+    Config. Returns the kernel rows and the launch counts by path."""
     from gnnome_tpu_torch.config import Config
     from gnnome_tpu_torch.data.synthetic import bench_features, bench_labels, build_bench_graph
     from gnnome_tpu_torch.decode.inference import load_model, score_graph
+    from gnnome_tpu_torch.models.model import init_model_params
     from gnnome_tpu_torch.train import loop
 
     graph, _ = build_bench_graph(N_NODES, N_EDGES, seed=seed, device=device)
@@ -1489,20 +1579,95 @@ def phase_bf16(torch, seed: int, f32_losses: dict, device="cuda") -> tuple[list,
     del params, logits, again, ref
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"  scoring, LayerNorm model (batch_norm=False), seeded random weights (seed {seed}) "
+        "cast to bf16 in the forward")
+    params = init_model_params(torch.Generator().manual_seed(seed), cfg.model, device)
+    paths["scoring_layernorm_bf16"] = phase_scoring(torch, graph, params, cfg, seed,
+                                                    "layernorm", "bfloat16")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    runs = (("batchnorm", "layer"), ("batchnorm", "none"))
-    training, losses = phase_training(torch, graph, seed, runs, "bfloat16")
-    for run in runs:
-        log(f"  batchnorm, remat={run[1]!r}: losses of the same 4 steps, bf16 "
+    training, losses = phase_training(torch, graph, seed, compute_dtype="bfloat16")
+    for run in TRAIN_RUNS:
+        log(f"  {run[0]}, remat={run[1]!r}: losses of the same 4 steps, bf16 "
             f"{[round(x, 5) for x in losses[run]]}, f32 (phase 4) "
             f"{[round(x, 5) for x in f32_losses[run]]}")
-        paths[f"train_step_batchnorm_bf16_remat_{run[1]}"] = training[run]
+        paths[f"train_step_{run[0]}_bf16_remat_{run[1]}"] = training[run]
+    paths[f"train_step_batchnorm_bf16_d{WIDE_D}"] = phase_wide_bf16(torch, graph, seed)
     del graph
     gc.collect()
     torch.cuda.empty_cache()
     paths["cluster_piece_step_batchnorm_bf16_remat_layer"] = phase_cluster_bf16(torch, seed,
                                                                               device)
     return rows, paths
+
+
+WIDE_D, WIDE_LAYERS = 640, 4  # the bf16 step above D = 512, at a cut depth
+
+
+def phase_wide_bf16(torch, graph, seed: int) -> dict:
+    """The bf16 gate front at D = WIDE_D (its W3 slice in K tiles) against
+    its plain version, then one bf16 BatchNorm ``"layer"`` step of a
+    WIDE_LAYERS-deep, WIDE_D-wide model (every bf16 entry of the narrow
+    path at that width, ``epilog_bwd_bf16``'s instance for rows of 80
+    chunks among them): launch counts, a finite loss, ms; returns the
+    step's launch counts."""
+    from gnnome_tpu_torch.config import ModelConfig
+    from gnnome_tpu_torch.data.synthetic import bench_features, bench_labels
+    from gnnome_tpu_torch.models.model import init_model_params
+    from gnnome_tpu_torch.ops.gate_front import gate_front, gate_front_plain
+    from gnnome_tpu_torch.train.loop import make_optimizer, train_step
+
+    dev, bf, d = graph.device, torch.bfloat16, WIDE_D
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    n, e = graph.n_nodes_padded, graph.n_edges_padded
+    with torch.inference_mode():
+        args = (randn(n, d), randn(n, d), randn(e, d), randn(d, d, scale=d ** -0.5),
+                randn(d), graph.src, graph.dst, graph.n_edges)
+        err = check_gate_front_bf16(torch, gate_front(*args), gate_front_plain(*args), args)
+        ms = time_ms(torch, lambda: gate_front(*args))
+        log(f"  gate_front_bf16 at D = {d}: max_abs_err={err:.3e} (tol see "
+            f"check_gate_front_bf16) ms={ms:.4f}")
+        del args
+    cfg = ModelConfig(hidden_features=d, num_gnn_layers=WIDE_LAYERS)
+    e_feat, pe = bench_features(graph, seed, cfg.nb_pos_enc)
+    y = bench_labels(graph, seed)
+    params = init_model_params(torch.Generator().manual_seed(seed), cfg, dev)
+    opt = make_optimizer(params, LR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss, _ = train_step(params, opt, graph, e_feat, pe, y,
+                             torch.tensor(POS_WEIGHT, device=dev), remat="layer",
+                             compute_dtype="bfloat16")
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"bf16 D = {d} step: loss {losses[-1]} is not finite")
+        if len(times) == 1:
+            launches = read_launches()
+    want = expected_launches("batchnorm_bf16", "layer", layers=WIDE_LAYERS)
+    if launches != want:
+        raise AssertionError(f"bf16 D = {d} step launch counts {launches}, expected {want}")
+    log(f"  bf16 BatchNorm step, D = {d}, {WIDE_LAYERS} layers, remat='layer': ms "
+        f"{[round(t, 3) for t in times]}; "
+        f"losses {[round(x, 5) for x in losses]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches as stated, "
+        f"no f32 entry")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_cluster_bf16(torch, seed: int, device="cuda") -> dict:
@@ -1680,7 +1845,7 @@ def main() -> int:
     log("phase 9: the pipeline: example.synthetic_example on the card")
     pipeline_launches = phase_pipeline(torch)
 
-    log("phase 10: bf16 compute (compute_dtype='bfloat16'), the BatchNorm model")
+    log("phase 10: bf16 compute (compute_dtype='bfloat16'), every model")
     bf16_rows, bf16_paths = phase_bf16(torch, args.seed, f32_losses)
     kernels += bf16_rows
 
@@ -1690,7 +1855,7 @@ def main() -> int:
              **{f"genome_step_{v}_remat_layer": c for v, c in genome.items()},
              **cluster, "synthetic_example": pipeline_launches, **bf16_paths}
     steps = [training[run] for run in TRAIN_RUNS] + \
-        [bf16_paths["train_step_batchnorm_bf16_remat_layer"]]
+        [bf16_paths[f"train_step_{v}_bf16_remat_{r}"] for v, r in TRAIN_RUNS]
     for row in kernels:
         name = row["name"]
         row["launches"] = next((c[name] for c in steps if c[name]), 0)

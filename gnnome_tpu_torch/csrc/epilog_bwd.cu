@@ -23,9 +23,15 @@
 // and g_enew read (3.07 GB), three [E, D] outputs written (3.07 GB), the
 // g_sums (307 MB) and values (154 MB) tables, key and src (8 MB): about
 // 6.6 GB, 2.0 ms at 3.35 TB/s; with pregathered rows (1.02 GB) in place of
-// the values table, about 7.5 GB, 2.2 ms; the bf16 entry moves its [E, D]
-// data and values in half the bytes, about 3.4 GB, 1.0 ms. One exp per
-// element.
+// the values table, about 7.5 GB, 2.2 ms; the bf16 entries move their
+// [E, D] data and values in half the bytes, about 3.4 GB, 1.0 ms (gather)
+// or 3.9 GB, 1.2 ms (pregathered). One exp per element.
+//
+// The bf16 pregathered entry (the VJP of fused_gate_sigma_aggregate_pallas
+// under bf16) reads e_in where the others read e_new and recomputes the
+// f32 e_new = relu(pre) + e_in, as _fused_gate_bwd does: its forward took
+// sigma of the unrounded f32 e_new. In f32 the saved e_new is the same bits,
+// so the f32 entries read it.
 //
 // Design: an edge-balanced walk, as the TPU kernel's fixed chunks of edges
 // (gnnome::edge_walker, csrc/common.cuh). A walker (a lane group of one
@@ -68,7 +74,9 @@ constexpr int R = 2;
 // outputs (float, or bf16 for the bf16 entry: g_sums is rounded to bf16 as
 // it is loaded, as the JAX VJP casts the cotangent to the edge dtype, and
 // the outputs are rounded as they are stored); g_sums, affine and d_affine
-// are f32, and d_affine sums the unrounded f32 d_pre.
+// are f32, and d_affine sums the unrounded f32 d_pre. RECOMPUTE (the bf16
+// pregathered entry): `e_new` holds e_in, and sigma is taken of
+// relu(pre) + e_in in f32.
 template <typename T, int VEC, int CH, bool GATHER>
 __device__ __forceinline__ void epilog_bwd_walk(
     const T* __restrict__ gate_raw, const T* __restrict__ e_new,
@@ -79,6 +87,7 @@ __device__ __forceinline__ void epilog_bwd_walk(
     T* __restrict__ d_vals, float* __restrict__ partial, int64_t n_nodes,
     int64_t n_rows, int d, int lanes_log2) {
   constexpr bool CS = GATHER;  // streaming loads beside a table gather
+  constexpr bool RECOMPUTE = !GATHER && gnnome::is_bf16<T>;
   extern __shared__ float red[];  // [WARPS][2][d]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -200,7 +209,8 @@ __device__ __forceinline__ void epilog_bwd_walk(
 #pragma unroll
             for (int v = 0; v < VEC; ++v) {
               const float pre = gnnome::bn_affine(gr[r][q][v], sc[q][v], bi[q][v]);
-              const float s = gnnome::sigmoid(en[r][q][v]);
+              const float s = gnnome::sigmoid(
+                  RECOMPUTE ? fmaxf(pre, 0.0f) + en[r][q][v] : en[r][q][v]);
               const float d_en = ge[r][q][v] + (g1[r][q][v] * val[r][q][v] + g2[r][q][v]) *
                                                    (s * (1.0f - s));
               const float d_pre = pre > 0.0f ? d_en : 0.0f;
@@ -353,7 +363,8 @@ GNNOME_API int gnnome_epilog_bwd_bf16(
                   device, stream);
 }
 
-// vals: [n_rows, d], one pregathered value row per canonical edge
+// vals: [n_rows, d], one pregathered value row per canonical edge; e_new:
+// the forward's output
 GNNOME_API int gnnome_epilog_bwd_pregathered_f32(
     const float* gate_raw, const float* e_new, const float* g_enew,
     const float* g_sums, const float* vals, const float* affine, const int* key,
@@ -361,6 +372,20 @@ GNNOME_API int gnnome_epilog_bwd_pregathered_f32(
     int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec, int device,
     void* stream) {
   return dispatch(gate_raw, e_new, g_enew, g_sums, vals, affine, key,
+                  static_cast<const int*>(nullptr), d_gate_raw, d_e_in, d_vals, partial,
+                  d_affine, n_nodes, n_rows, d, max_parts, vec, device, stream);
+}
+
+// the bf16 pregathered entry: e_in (not e_new; the f32 e_new is recomputed
+// from it), gate_raw, g_enew, vals and the three outputs bf16; g_sums,
+// affine, partial and d_affine f32
+GNNOME_API int gnnome_epilog_bwd_pregathered_bf16(
+    const gnnome::bf16* gate_raw, const gnnome::bf16* e_in, const gnnome::bf16* g_enew,
+    const float* g_sums, const gnnome::bf16* vals, const float* affine, const int* key,
+    gnnome::bf16* d_gate_raw, gnnome::bf16* d_e_in, gnnome::bf16* d_vals, float* partial,
+    float* d_affine, int64_t n_nodes, int64_t n_rows, int d, int max_parts, int vec,
+    int device, void* stream) {
+  return dispatch(gate_raw, e_in, g_enew, g_sums, vals, affine, key,
                   static_cast<const int*>(nullptr), d_gate_raw, d_e_in, d_vals, partial,
                   d_affine, n_nodes, n_rows, d, max_parts, vec, device, stream);
 }

@@ -18,9 +18,18 @@
 // read (2.05 GB), e_new written (1.02 GB), the sums written (307 MB), ids and
 // offsets (5 MB), and the values table (154 MB): about 3.54 GB, 1.06 ms at
 // 3.35 TB/s; with pregathered rows (1.02 GB) in its place about 4.40 GB,
-// 1.31 ms; the bf16 entry reads and writes its [E, D] and [N, D] data in
-// half the bytes, about 1.92 GB, 0.57 ms. The arithmetic (one exp per
-// element) is far below the line.
+// 1.31 ms; the bf16 entries read and write their [E, D] and [N, D] data in
+// half the bytes, about 1.92 GB, 0.57 ms (gather) or 2.36 GB, 0.70 ms
+// (pregathered). The arithmetic (one exp per element) is far below the
+// line.
+//
+// bf16 rounding: each entry rounds where its TPU kernel rounds. e_new is
+// computed in f32 and stored rounded to bf16. gate_sigma_aggregate
+// (_fused_gate_kernel, spmm_pallas.py:1395-1399) takes sigma of the
+// unrounded f32 e_new and rounds each summand sigma * v and sigma to bf16
+// before its f32 sum; gate_sigma_gather takes sigma of the rounded e_new
+// and sums the f32 summands, as the JAX composition does (its bf16 entry's
+// contract, held by tests/test_torch_bf16.py).
 //
 // Design: one warp per destination row. Canonical order is dst-sorted, so
 // the row's edges are the contiguous range offsets[v]:offsets[v+1]; the
@@ -36,8 +45,11 @@ namespace {
 
 // GATHER: the value row of edge k is values[src[k]], else vals[k]. T: the
 // stored type of gate, e_in, values and e_new (float, or bf16 for the bf16
-// entries: e_new is rounded as it is stored and σ is taken of the rounded
-// value, as the JAX composition takes it of the bf16 e_new).
+// entries: e_new is rounded as it is stored). The gather form takes σ of
+// the rounded e_new, as the JAX composition takes it of the bf16 e_new; the
+// pregathered form rounds where fused_gate_sigma_aggregate_pallas does: σ
+// of the f32 e_new, each summand rounded to T (for T = float both are the
+// same arithmetic).
 template <typename T, int VEC, bool GATHER>
 __device__ __forceinline__ void gate_epilog_rows(
     const T* __restrict__ gate, const T* __restrict__ e_in,
@@ -65,11 +77,17 @@ __device__ __forceinline__ void gate_epilog_rows(
         gnnome::load_vec<VEC>(values + so + c, val);
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
-          en[q] = gnnome::round_to<T>(
-              fmaxf(gnnome::bn_affine(g[q], sc[q], bi[q]), 0.0f) + x[q]);
-          const float sg = gnnome::sigmoid(en[q]);
-          acc1[q] += sg * val[q];
-          acc2[q] += sg;
+          const float e32 = fmaxf(gnnome::bn_affine(g[q], sc[q], bi[q]), 0.0f) + x[q];
+          en[q] = gnnome::round_to<T>(e32);
+          if constexpr (GATHER) {
+            const float sg = gnnome::sigmoid(en[q]);
+            acc1[q] += sg * val[q];
+            acc2[q] += sg;
+          } else {
+            const float sg = gnnome::sigmoid(e32);
+            acc1[q] += gnnome::round_to<T>(sg * val[q]);
+            acc2[q] += gnnome::round_to<T>(sg);
+          }
         }
         gnnome::store_vec<VEC>(e_new + k * d + c, en);
       }
@@ -186,6 +204,15 @@ GNNOME_API int gnnome_gate_sigma_aggregate_f32(
     const float* gate, const float* e_in, const float* vals, const float* affine,
     const int* offsets, float* sums, float* e_new, int64_t n_nodes, int64_t n_rows,
     int d, int vec, int device, void* stream) {
+  return dispatch(gate, e_in, vals, affine, offsets, static_cast<const int*>(nullptr),
+                  sums, e_new, n_nodes, n_rows, d, vec, device, stream);
+}
+
+// gate, e_in, vals, e_new bf16; affine and sums f32
+GNNOME_API int gnnome_gate_sigma_aggregate_bf16(
+    const gnnome::bf16* gate, const gnnome::bf16* e_in, const gnnome::bf16* vals,
+    const float* affine, const int* offsets, float* sums, gnnome::bf16* e_new,
+    int64_t n_nodes, int64_t n_rows, int d, int vec, int device, void* stream) {
   return dispatch(gate, e_in, vals, affine, offsets, static_cast<const int*>(nullptr),
                   sums, e_new, n_nodes, n_rows, d, vec, device, stream);
 }

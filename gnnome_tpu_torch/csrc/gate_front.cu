@@ -570,10 +570,15 @@ cudaError_t launch_front(const float* b1h, const float* b2h, const float* e,
 // 3.35 TB/s; e . W3 is 131 GFLOP, 0.13 ms at the dense bf16 rate.
 //
 // Design (simple first): a block owns 128 output columns (gridDim.y blocks
-// cover d) and walks 64-edge row tiles, blockIdx-strided; its W3 slice
-// stays in shared memory for the whole walk. Per tile: cp.async brings the
-// e tile to shared memory, eight warps (4 row groups of 16 x 2 column
-// halves of 64) run mma.sync on ldmatrix fragments, the product is rounded
+// cover d) and walks 64-edge row tiles, blockIdx-strided. Its W3 slice is
+// cut into K tiles: one tile of the whole padded depth for d <= 512, which
+// stays in shared memory for the whole walk, else tiles of 256 rows,
+// brought in again for every row tile (any d the f32 entry takes). Per row
+// tile and K tile: cp.async brings the matching columns of the e tile to
+// shared memory, eight warps (4 row groups of 16 x 2 column halves of 64)
+// run mma.sync on ldmatrix fragments into the same f32 accumulators, in
+// the same k order whatever the tiling (the sums, and so the outputs, do
+// not depend on it); then the product is rounded
 // to bf16 into shared memory, and each half-warp finishes a row: gathers
 // the endpoint rows (16 bytes a lane), adds, stores the gate row and adds
 // real rows into the moments it keeps in registers. Two blocks share an SM,
@@ -590,20 +595,29 @@ constexpr int WARPS = 8;   // 4 row groups of 16 rows x 2 column halves of 64
 constexpr int THREADS = WARPS * 32;
 constexpr int PAD = 8;     // bf16 of padding per shared row: ldmatrix rows on distinct banks
 constexpr int W_LD = BN + PAD;  // row stride of the W3 slice and of the product tile
+constexpr int KT_WHOLE = 512;  // the deepest W3 slice kept in shared memory whole
+constexpr int KT = 256;        // K rows of a W3 tile of a deeper slice
 
 // K rows of the W3 slice: d padded to the MMA's k16
 __host__ __device__ inline int k_pad(int d) { return (d + 15) / 16 * 16; }
 
-// the W3 slice [kp][W_LD], then the e tile [BM][kp + PAD], whose space the
+// K rows of a W3 tile (and columns of an e tile): the whole slice where it
+// fits (d <= 512: about 206 KB at d = 512), else KT (about 103 KB, two
+// blocks an SM)
+__host__ __device__ inline int k_tile(int d) {
+  return k_pad(d) <= KT_WHOLE ? k_pad(d) : KT;
+}
+
+// the W3 tile [kt][W_LD], then the e tile [BM][kt + PAD], whose space the
 // product tile [BM][W_LD] and the moments' reduction [WARPS][2][BN] f32 reuse
 inline size_t smem_bytes(int d) {
-  const int kp = k_pad(d);
-  size_t tile = static_cast<size_t>(BM) * (kp + PAD) * sizeof(bf16);
+  const int kt = k_tile(d);
+  size_t tile = static_cast<size_t>(BM) * (kt + PAD) * sizeof(bf16);
   const size_t ctile = static_cast<size_t>(BM) * W_LD * sizeof(bf16);
   const size_t red = static_cast<size_t>(WARPS) * 2 * BN * sizeof(float);
   if (tile < ctile) tile = ctile;
   if (tile < red) tile = red;
-  return static_cast<size_t>(kp) * W_LD * sizeof(bf16) + tile;
+  return static_cast<size_t>(kt) * W_LD * sizeof(bf16) + tile;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -646,30 +660,37 @@ __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
     int n_rows, int n_real, int d) {
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   const int kp = k_pad(d);
-  const int e_ld = kp + PAD;
-  bf16* ws = reinterpret_cast<bf16*>(smem_bf16);  // W3[:, col0 : col0 + BN], [kp][W_LD]
-  bf16* es = ws + kp * W_LD;                     // the e tile, then the product tile
+  const int kt = k_tile(d);
+  const bool whole = kt == kp;  // one K tile: the W3 slice loaded once
+  const int e_ld = kt + PAD;
+  bf16* ws = reinterpret_cast<bf16*>(smem_bf16);  // W3[kb : kb + kt, col0 : col0 + BN], [kt][W_LD]
+  bf16* es = ws + kt * W_LD;                     // the e tile, then the product tile
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int col0 = blockIdx.y * BN;
   const bf16 zero = __float2bfloat16_rn(0.0f);
 
-  // the W3 slice, zeros past d (rows k >= d, columns >= d)
-  for (int i = tid; i < kp * (BN / 8); i += THREADS) {
-    const int k = i / (BN / 8), n8 = (i % (BN / 8)) * 8;
-    bf16* p = ws + k * W_LD + n8;
-    const int col = col0 + n8;
-    if constexpr (VEC == 8) {
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (k < d && col < d) u = *reinterpret_cast<const uint4*>(w3 + static_cast<int64_t>(k) * d + col);
-      *reinterpret_cast<uint4*>(p) = u;
-    } else {
+  // the W3 rows kb : kb + kt of the slice, zeros past d (rows k >= d,
+  // columns >= d)
+  const auto load_w3 = [&](int kb) {
+    for (int i = tid; i < kt * (BN / 8); i += THREADS) {
+      const int kr = i / (BN / 8), n8 = (i % (BN / 8)) * 8;
+      const int k = kb + kr;
+      bf16* p = ws + kr * W_LD + n8;
+      const int col = col0 + n8;
+      if constexpr (VEC == 8) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (k < d && col < d) u = *reinterpret_cast<const uint4*>(w3 + static_cast<int64_t>(k) * d + col);
+        *reinterpret_cast<uint4*>(p) = u;
+      } else {
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        p[q] = k < d && col + q < d ? w3[static_cast<int64_t>(k) * d + col + q] : zero;
+        for (int q = 0; q < 8; ++q)
+          p[q] = k < d && col + q < d ? w3[static_cast<int64_t>(k) * d + col + q] : zero;
+      }
     }
-  }
+  };
+  if (whole) load_w3(0);
 
   // the epilogue: this lane's 8 columns of the block (a half-warp covers
   // them all), their bias, and the moments of real rows
@@ -692,35 +713,43 @@ __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
   const int n_tiles = (n_rows + BM - 1) / BM;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * BM;
-    __syncthreads();  // the W3 slice is in; the last tile's epilogue is done with es
-    for (int i = tid; i < BM * (kp / 8); i += THREADS) {
-      const int r = i / (kp / 8), k8 = (i % (kp / 8)) * 8;
-      bf16* p = es + r * e_ld + k8;
-      const int row = row0 + r;
-      if constexpr (VEC == 8) {
-        const bool in = row < n_rows && k8 < d;
-        cp_async16(p, in ? e + static_cast<int64_t>(row) * d + k8 : e, in ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          p[q] = row < n_rows && k8 + q < d ? e[static_cast<int64_t>(row) * d + k8 + q] : zero;
-      }
-    }
-    if constexpr (VEC == 8) cp_async_wait_all();
-    __syncthreads();
-
     float acc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-    for (int k0 = 0; k0 < kp; k0 += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, a_base + k0);
+    // the K tiles in order, into the same accumulators: k0 runs 0, 16, ...,
+    // kp - 16 whatever kt is
+    for (int kb = 0; kb < kp; kb += kt) {
+      // the W3 slice is in; the last tile's epilogue (or the last K tile's
+      // products) are done with es and ws
+      __syncthreads();
+      if (!whole) load_w3(kb);
+      for (int i = tid; i < BM * (kt / 8); i += THREADS) {
+        const int r = i / (kt / 8), k8 = kb + (i % (kt / 8)) * 8;
+        bf16* p = es + r * e_ld + (k8 - kb);
+        const int row = row0 + r;
+        if constexpr (VEC == 8) {
+          const bool in = row < n_rows && k8 < d;
+          cp_async16(p, in ? e + static_cast<int64_t>(row) * d + k8 : e, in ? 16 : 0);
+        } else {
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, b_base + k0 * W_LD + j * 8);
-        mma_16816(acc[j], a, b[0], b[1]);
-        mma_16816(acc[j + 1], a, b[2], b[3]);
+          for (int q = 0; q < 8; ++q)
+            p[q] = row < n_rows && k8 + q < d ? e[static_cast<int64_t>(row) * d + k8 + q] : zero;
+        }
+      }
+      if constexpr (VEC == 8) cp_async_wait_all();
+      __syncthreads();
+
+      const int k_end = kp - kb < kt ? kp - kb : kt;
+      for (int k0 = 0; k0 < k_end; k0 += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, a_base + k0);
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, b_base + k0 * W_LD + j * 8);
+          mma_16816(acc[j], a, b[0], b[1]);
+          mma_16816(acc[j + 1], a, b[2], b[3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with the e tile: the product tile takes its space
@@ -855,7 +884,7 @@ GNNOME_API int gnnome_gate_front_f32(
 
 // The bf16 entry: b1h, b2h, e, w3, b3 and gate bf16; partial (scratch f32
 // [n_parts, 2, d]) and mom f32. n_parts blocks of each 128-column block
-// walk the 64-row tiles. d up to 512 (the W3 slice stays in shared memory).
+// walk the 64-row tiles. Any d (the W3 slice in K tiles above 512).
 // vec: d % 8 == 0 and the row tensors' bases 16-byte aligned.
 GNNOME_API int gnnome_gate_front_bf16(
     const gnnome::bf16* b1h, const gnnome::bf16* b2h, const gnnome::bf16* e,

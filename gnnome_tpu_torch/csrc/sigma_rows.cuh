@@ -11,7 +11,8 @@
 //
 // T is the stored type of the [E, D] data and the node table: float, or
 // bf16 for the bf16 entries (loads convert to f32, all arithmetic runs in
-// f32, stores round to nearest); the sums and g_sums are f32 arrays. The
+// f32, stores round to nearest, and the forward rounds its summands where
+// the caller asks); the sums and g_sums are f32 arrays. The
 // forward (sigma_sum_rows) gives one warp per row, each lane owning one
 // 16-byte access of consecutive columns per slice (VEC = 4 f32 or 8 bf16)
 // where the rows allow it; its sums are taken in f32 registers in CSR
@@ -48,7 +49,11 @@ __device__ __forceinline__ int64_t value_row(const int* __restrict__ ids, int64_
 }
 
 // sums[v] = [sum_j sigmoid(e[k]) * value(j) || sum_j sigmoid(e[k])]  (f32 [N, 2D])
-template <typename T, int VEC, bool ORDERED, int VAL>
+// ROUND: each summand, sigmoid(e[k]) * value(j) and sigmoid(e[k]), is
+// rounded to T before it joins the f32 sum, as the TPU's
+// fused_sigma_aggregate_pallas feeds them to its MXU sum in the data dtype
+// (a no-op for T = float).
+template <typename T, int VEC, bool ORDERED, int VAL, bool ROUND = false>
 __device__ __forceinline__ void sigma_sum_rows(
     const T* __restrict__ e, const T* __restrict__ values,
     const int* __restrict__ offsets, const int* __restrict__ order,
@@ -71,8 +76,13 @@ __device__ __forceinline__ void sigma_sum_rows(
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
           const float sg = sigmoid(en[q]);
-          acc1[q] += sg * val[q];
-          acc2[q] += sg;
+          if constexpr (ROUND) {
+            acc1[q] += round_to<T>(sg * val[q]);
+            acc2[q] += round_to<T>(sg);
+          } else {
+            acc1[q] += sg * val[q];
+            acc2[q] += sg;
+          }
         }
       }
       store_vec<VEC>(sums + v * 2 * d + c, acc1);

@@ -14,6 +14,8 @@ from typing import Dict
 
 import torch
 
+from gnnome_tpu_torch.ops.dense import matmul
+
 
 def init_linear(gen: torch.Generator, fan_in: int, fan_out: int,
                 device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -25,7 +27,9 @@ def init_linear(gen: torch.Generator, fan_in: int, fan_out: int,
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+    """``x @ w + b``; under bf16 ``d_w`` keeps an f32 result
+    (``ops/dense.py``)."""
+    return matmul(x, p["w"]) + p["b"]
 
 
 def init_norm(dim: int, device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:

@@ -33,9 +33,10 @@ Every branch runs on kernels, following the JAX layer line by line
 
 Every sum on these paths is a fixed-order CSR walk (no float atomics), so
 a checkpointed layer's recompute reproduces its forward bit for bit.
-Under bf16 compute (``h``, ``e`` and the parameters bf16; the BatchNorm
-narrow branch) the moments, the folded affine and the aggregation sums
-stay f32, and ``h_fwd`` / ``h_bwd`` return to bf16, as in JAX.
+Under bf16 compute (``h``, ``e`` and the parameters bf16; every branch)
+the BatchNorm moments, the folded affine and the aggregation sums stay
+f32, the LayerNorm and the gate's adds run in bf16, and ``h_fwd`` /
+``h_bwd`` return to bf16, as in JAX (``gnnome_tpu/models/gated_gcn.py``).
 Dropout, as in JAX, is applied to ``h`` after the residual when a rate and
 a generator are given.
 """

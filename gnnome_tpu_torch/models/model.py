@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from gnnome_tpu_torch.core.graph import AssemblyGraph
 from gnnome_tpu_torch.models.common import init_linear, linear
 from gnnome_tpu_torch.models.gated_gcn import gated_gcn_layer, init_gated_gcn_layer
+from gnnome_tpu_torch.ops.dense import matmul
 from gnnome_tpu_torch.ops.segment import gather_by_endpoint
 
 
@@ -51,11 +52,11 @@ def score_predictor(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
     built (``gnnome_tpu/models/model.py:52-74``)."""
     d = h.shape[-1]
     w1, b1 = params["score1"]["w"], params["score1"]["b"]
-    h_src_proj = h @ w1[:d]
-    h_dst_proj = h @ w1[d: 2 * d]
+    h_src_proj = matmul(h, w1[:d])
+    h_dst_proj = matmul(h, w1[d: 2 * d])
     pre = (gather_by_endpoint(h_src_proj, graph.src, graph.by_src)
            + gather_by_endpoint(h_dst_proj, graph.dst, graph.by_dst)
-           + e @ w1[2 * d:]
+           + matmul(e, w1[2 * d:])
            + b1)
     return linear(params["score2"], torch.relu(pre))[:, 0]
 
@@ -64,23 +65,16 @@ REMAT_MODES = ("none", "layer", "group", "unroll_group")
 BF16_NAMES = ("bfloat16", "bf16")
 
 
-def compute_dtype_of(compute_dtype: str, batch_norm: bool = True,
-                     wide_gathers=False) -> torch.dtype:
+def compute_dtype_of(compute_dtype: str) -> torch.dtype:
     """The torch dtype of a ``compute_dtype`` name, JAX's spellings
-    (``"float32"``; ``"bfloat16"`` / ``"bf16"``). bf16 covers the BatchNorm
-    model with narrow gathers: the LayerNorm and wide-gather layers' kernels
-    (rows 10-11 of the kernel table) have no bf16 entries yet, and any other
-    combination raises ``NotImplementedError`` naming it."""
+    (``"float32"``; ``"bfloat16"`` / ``"bf16"``); raises ``ValueError`` for
+    any other name. bf16 covers every model: BatchNorm and LayerNorm, narrow
+    and wide gathers, as JAX's ``model_forward`` casts every config
+    (``gnnome_tpu/models/model.py:134-140``)."""
     if compute_dtype == "float32":
         return torch.float32
     if compute_dtype not in BF16_NAMES:
         raise ValueError(f"compute_dtype={compute_dtype!r}; one of float32, {BF16_NAMES}")
-    if not batch_norm or wide_gathers:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r} with batch_norm={batch_norm}, "
-            f"wide_gathers={wide_gathers!r}: bf16 covers the BatchNorm model with narrow "
-            "gathers; the LayerNorm and wide-gather kernels (sigma_aggregate, "
-            "gate_sigma_aggregate and their backwards) have no bf16 entries yet")
     return torch.bfloat16
 
 
@@ -122,9 +116,9 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
     ``compute_dtype`` ``"bfloat16"`` (or ``"bf16"``) runs the model in bf16
     with f32 master weights, as ``gnnome_tpu/models/model.py:134-140``:
     every f32 leaf, ``pe`` and ``e_feat`` are cast to bf16 inside the
-    forward, the kernels take their bf16 entries (f32 sums and moments), and
-    the logits come back in f32. The BatchNorm narrow model only
-    (:func:`compute_dtype_of`).
+    forward, the kernels take their bf16 entries (f32 sums and moments), the
+    weight gradients keep an f32 result (``ops/dense.py``), and the logits
+    come back in f32; every model branch (:func:`compute_dtype_of`).
 
     Dropout (``dropout_rate`` > 0 with a ``dropout_rng``, a CPU generator
     in place of JAX's ``dropout_rng`` key) runs the layers as a plain loop,
@@ -149,7 +143,7 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
     """
     if remat not in REMAT_MODES:
         raise ValueError(f"unknown remat mode {remat!r}; one of {REMAT_MODES}")
-    cdt = compute_dtype_of(compute_dtype, batch_norm, wide_gathers)
+    cdt = compute_dtype_of(compute_dtype)
     if cdt != torch.float32:
         params = _cast_params(params, cdt)
         pe, e_feat = pe.to(cdt), e_feat.to(cdt)

@@ -12,14 +12,17 @@ JAX ``_fused_gate_gather_bwd`` and ``_fused_gate_bwd``) runs
 the XLA VJP of the second; an edge-balanced walk that reads each edge's row
 from ``by_dst.key``), then, with ``src``, the by_src segment sum.
 
-Under bf16 (``gnnome_tpu/ops/segment.py:769-790, 804-850``): the gate,
-``e_in``, the values and ``e_new`` are bf16, the affine and the sums f32;
-``e_new`` is rounded to bf16 and σ taken of the rounded value; in the
+Under bf16 (``gnnome_tpu/ops/segment.py:769-790, 804-850, 1040-1085``):
+the gate, ``e_in``, the values and ``e_new`` are bf16, the affine and the
+sums f32; ``e_new`` is computed in f32 and rounded to bf16. The gather
+form takes σ of the rounded value; the pregathered form rounds where the
+TPU kernel rounds (``gnnome_tpu/ops/spmm_pallas.py:1395-1399``): σ of the
+f32 ``e_new``, each summand ``σ·v`` and ``σ`` rounded to bf16 before its
+f32 sum (the xla composition takes σ of the rounded ``e_new``). In the
 backward the ``g_sums`` rows are rounded to bf16 before use (the JAX VJP
 casts the cotangent to the edge dtype), the [E, D] cotangents are computed
-in f32 and rounded once, and ``d_affine`` stays f32. ``GateSigmaGather``
-covers the gather form (the BatchNorm narrow path); the pregathered form
-stays f32.
+in f32 and rounded once, and ``d_affine`` stays f32; the pregathered form
+recomputes the f32 ``e_new`` from ``e_in``, as ``_fused_gate_bwd`` does.
 """
 from __future__ import annotations
 
@@ -49,6 +52,12 @@ GATE_SIGMA_AGGREGATE = register(Kernel(
     [P, P, P, P, P, P, P, I64, I64, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_epilog.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:3156 fused_gate_sigma_aggregate_pallas"))
+GATE_SIGMA_AGGREGATE_BF16 = register(Kernel(
+    "gate_sigma_aggregate_bf16", "gnnome_gate_sigma_aggregate_bf16",
+    [P, P, P, P, P, P, P, I64, I64, I32, I32],
+    source="gnnome_tpu_torch/csrc/gate_epilog.cu",
+    replaces="gnnome_tpu/ops/spmm_pallas.py:3156 fused_gate_sigma_aggregate_pallas",
+    dtype=torch.bfloat16))
 EPILOG_BWD = register(Kernel(
     "epilog_bwd", "gnnome_epilog_bwd_f32",
     [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
@@ -65,6 +74,12 @@ EPILOG_BWD_PREGATHERED = register(Kernel(
     source="gnnome_tpu_torch/csrc/epilog_bwd.cu",
     replaces="gnnome_tpu/ops/segment.py:1057 _fused_gate_bwd (the VJP of "
              "fused_gate_sigma_aggregate_pallas)"))
+EPILOG_BWD_PREGATHERED_BF16 = register(Kernel(
+    "epilog_bwd_pregathered_bf16", "gnnome_epilog_bwd_pregathered_bf16",
+    [P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    source="gnnome_tpu_torch/csrc/epilog_bwd.cu",
+    replaces="gnnome_tpu/ops/segment.py:1057 _fused_gate_bwd (the VJP of "
+             "fused_gate_sigma_aggregate_pallas)", dtype=torch.bfloat16))
 
 # csrc/epilog_bwd.cu chooses the grid of its walk (the card filled once,
 # fewer blocks where the edges are fewer) and clips it to _MAX_PARTS blocks;
@@ -77,13 +92,29 @@ def _value_rows(values, src):
     return values if src is None else values[src]
 
 
+def recomputes_e_new(dtype: torch.dtype, src) -> bool:
+    """Whether :func:`epilog_bwd` takes ``e_in`` in place of ``e_new``:
+    the bf16 pregathered form (the VJP of ``gate_sigma_aggregate``), whose
+    forward took σ of the f32 ``e_new``, recomputes it from ``e_in``, as
+    JAX's ``_fused_gate_bwd`` does. Every other form reads the saved
+    ``e_new`` (in f32 the two are the same bits)."""
+    return src is None and dtype == torch.bfloat16
+
+
 def gate_sigma_gather_plain(gate, e_in, values, affine, by_dst: CSR, src=None):
     n, d = by_dst.offsets.shape[0] - 1, gate.shape[1]
-    f32 = torch.float32
+    dt, f32 = e_in.dtype, torch.float32
     pre = gate.to(f32) * affine[0] + affine[1]
-    e_new = (torch.relu(pre) + e_in.to(f32)).to(e_in.dtype)
-    sigma = torch.sigmoid(e_new.to(f32))
-    stacked = torch.cat([sigma * _value_rows(values, src).to(f32), sigma], dim=-1)
+    e32 = torch.relu(pre) + e_in.to(f32)
+    e_new = e32.to(dt)
+    if src is None:  # the TPU kernel's σ of the f32 e_new, summands rounded
+        sigma = torch.sigmoid(e32)
+        sv = (sigma * values.to(f32)).to(dt).to(f32)
+        sigma = sigma.to(dt).to(f32)
+    else:
+        sigma = torch.sigmoid(e_new.to(f32))
+        sv = sigma * values[src].to(f32)
+    stacked = torch.cat([sv, sigma], dim=-1)
     valid = by_dst.key < n
     sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=values.device)
     sums.index_add_(0, by_dst.key[valid], stacked[valid])
@@ -100,14 +131,15 @@ def gate_sigma_gather(gate: torch.Tensor, e_in: torch.Tensor,
     itself ([E, D] pregathered rows, ``gate_sigma_aggregate``); padded edges
     (key ``PAD_SEGMENT``) join no sum. ``by_dst`` must be the canonical
     (identity) layout. ``gate``, ``e_in``, ``values`` and ``e_new`` are
-    float32, or bfloat16 in the gather form; ``affine`` and the sums f32."""
+    float32 or bfloat16; ``affine`` and the sums f32."""
     if not by_dst.identity:
         raise ValueError("gate_sigma_gather runs on the canonical (by_dst) layout")
     extra = [] if src is None else [src]
     if on_cpu(gate, e_in, values, affine, by_dst.key, by_dst.offsets, *extra):
         return gate_sigma_gather_plain(gate, e_in, values, affine, by_dst, src)
-    kernel = GATE_SIGMA_AGGREGATE if src is None else entry(
-        gate.dtype, GATE_SIGMA_GATHER, GATE_SIGMA_GATHER_BF16)
+    kernel = entry(gate.dtype, *((GATE_SIGMA_AGGREGATE, GATE_SIGMA_AGGREGATE_BF16)
+                                 if src is None else (GATE_SIGMA_GATHER,
+                                                      GATE_SIGMA_GATHER_BF16)))
     check_cuda_args(kernel.name, [gate, e_in, values], [by_dst.offsets, *extra],
                     dtype=kernel.dtype, f32=[affine])
     n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate.shape
@@ -132,7 +164,10 @@ def epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine, by_dst: CS
     g1, g2 = gc[:, :d], gc[:, d:]
     graw = gate_raw.to(f32)
     pre = graw * affine[0] + affine[1]
-    sig = torch.sigmoid(e_new.to(f32))
+    e32 = e_new.to(f32)
+    if recomputes_e_new(dt, src):  # e_new holds e_in
+        e32 = torch.relu(pre) + e32
+    sig = torch.sigmoid(e32)
     d_enew = g_enew.to(f32) + (g1 * _value_rows(values, src).to(f32) + g2) \
         * (sig * (1.0 - sig))
     d_pre = d_enew * (pre > 0)
@@ -148,10 +183,11 @@ def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor
     its outputs (``g_sums`` [N, 2D], ``g_enew`` [E, D]); ``d_vals`` is per
     edge (with ``src``, its by_src segment sum is ``d_values``; without, it
     is the gradient of the pregathered rows) and ``d_affine`` ([2, D]) is
-    summed over all rows, padded ones included. bfloat16 [E, D] data (the
-    gather form) take ``g_sums`` and ``affine`` in f32, round the
-    ``g_sums`` rows to bf16 as they use them and return bf16 cotangents and
-    an f32 ``d_affine``."""
+    summed over all rows, padded ones included. bfloat16 [E, D] data take
+    ``g_sums`` and ``affine`` in f32, round the ``g_sums`` rows to bf16 as
+    they use them and return bf16 cotangents and an f32 ``d_affine``;
+    where :func:`recomputes_e_new` (bf16 without ``src``), ``e_new`` is
+    ``e_in``."""
     if not by_dst.identity:
         raise ValueError("epilog_bwd runs on the canonical (by_dst) layout")
     extra = [] if src is None else [src]
@@ -159,8 +195,8 @@ def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor
               by_dst.offsets, *extra):
         return epilog_bwd_plain(gate_raw, e_new, g_enew, g_sums, values, affine,
                                 by_dst, src)
-    kernel = EPILOG_BWD_PREGATHERED if src is None else entry(
-        gate_raw.dtype, EPILOG_BWD, EPILOG_BWD_BF16)
+    kernel = entry(gate_raw.dtype, *((EPILOG_BWD_PREGATHERED, EPILOG_BWD_PREGATHERED_BF16)
+                                     if src is None else (EPILOG_BWD, EPILOG_BWD_BF16)))
     floats = [gate_raw, e_new, g_enew, g_sums, values, affine]
     check_cuda_args(kernel.name, [gate_raw, e_new, g_enew, values], [by_dst.key, *extra],
                     dtype=kernel.dtype, f32=[g_sums, affine])
@@ -189,22 +225,25 @@ class GateSigmaGather(torch.autograd.Function):
     rows). Saves ``(gate_raw, e_new, values, affine)``: ``e_new``, the
     forward's own output, in place of ``e_in``, as
     ``_fused_gate_gather_fwd`` does (``_fused_gate_fwd`` recomputes it from
-    ``e_in``; the values are the same); a strided slice of a wider table
-    (the wide-gather pairs) is copied to contiguous rows first."""
+    ``e_in``; in f32 the values are the same), but ``e_in`` for the bf16
+    pregathered form, whose σ is of the unrounded e_new
+    (:func:`recomputes_e_new`); a strided slice of a wider table (the
+    wide-gather pairs) is copied to contiguous rows first."""
 
     @staticmethod
     def forward(ctx, gate, e_in, values, affine, by_dst: CSR, src, by_src: Optional[CSR]):
         values = values.contiguous()
         sums, e_new = gate_sigma_gather(gate, e_in, values, affine, by_dst, src)
-        ctx.save_for_backward(gate, e_new, values, affine)
+        ctx.save_for_backward(gate, e_in if recomputes_e_new(e_in.dtype, src) else e_new,
+                              values, affine)
         ctx.by_dst, ctx.src, ctx.by_src = by_dst, src, by_src
         return sums, e_new
 
     @staticmethod
     def backward(ctx, g_sums, g_enew):
-        gate, e_new, values, affine = ctx.saved_tensors
+        gate, e_saved, values, affine = ctx.saved_tensors
         d_gate, d_e_in, d_vals, d_affine = epilog_bwd(
-            gate, e_new, g_enew.contiguous(), g_sums.contiguous(), values, affine,
+            gate, e_saved, g_enew.contiguous(), g_sums.contiguous(), values, affine,
             ctx.by_dst, ctx.src)
         if ctx.src is not None:
             d_vals = segment_sum(d_vals, ctx.by_src).to(values.dtype) \

@@ -22,6 +22,7 @@ import torch
 from gnnome_tpu_torch.core.graph import CSR
 from gnnome_tpu_torch.ops.cuda_lib import (
     I32, I64, P, Kernel, check_cuda_args, entry, on_cpu, register, vec_ok)
+from gnnome_tpu_torch.ops.dense import weight_grad
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
 
 GATE_FRONT = register(Kernel(
@@ -52,8 +53,8 @@ GATE_FRONT_BWD_BF16 = register(Kernel(
 # and K slices of 16 (an even count of them), in scratch the wrapper gives
 _FRONT_ROW_TILE, _FRONT_COLS, _FRONT_K = 128, 256, 16
 # its bf16 entry: 64-edge row tiles, 128-column blocks, two blocks an SM,
-# the W3 slice in shared memory (d up to 512)
-_BF16_ROW_TILE, _BF16_COLS, _BF16_MAX_D = 64, 128, 512
+# the W3 slice in shared memory (whole up to d = 512, in K tiles above)
+_BF16_ROW_TILE, _BF16_COLS = 64, 128
 # csrc/gate_front_bwd.cu: blocks that walk its 64-edge row tiles
 _ROW_TILE = 64
 _MAX_PARTS = 1024
@@ -109,9 +110,6 @@ def gate_front(b1h: torch.Tensor, b2h: torch.Tensor, e: torch.Tensor,
 
 def _gate_front_bf16(b1h, b2h, e, w3, b3, src, dst, n_real: int, sms: int):
     n_rows, d = e.shape
-    if d > _BF16_MAX_D:
-        raise ValueError(f"gate_front_bf16: d={d}; the W3 slice in shared memory "
-                         f"takes d up to {_BF16_MAX_D}")
     # the column blocks of a row tile run at once (two blocks an SM), so the
     # second reads the e tile from the L2
     n_cb = -(-d // _BF16_COLS)
@@ -168,7 +166,8 @@ class GateFront(torch.autograd.Function):
     ``d_W3 = eᵀ·d_total``, ``d_bias3 = Σ d_total``. Saves ``(gate, e, w3)``,
     as ``_gate_front_fwd`` does. Under bf16 the f32 sums (the segment sums,
     ``d_bias3``) are returned rounded to their inputs' dtype, as the JAX VJP
-    returns them, and the B3 products are bf16 products (f32 accumulation)."""
+    returns them, ``d_e`` is a bf16 product and ``d_W3`` an f32-result
+    product rounded once (``ops/dense.py``), as JAX takes them."""
 
     @staticmethod
     def forward(ctx, b1h, b2h, e, w3, b3, src, dst, n_real: int,
@@ -189,5 +188,5 @@ class GateFront(torch.autograd.Function):
         d_b1h = segment_sum(d_total, ctx.by_src).to(t1) if need[0] else None
         d_b2h = segment_sum(d_total, ctx.by_dst).to(t2) if need[1] else None
         d_e = d_total @ w3.T if need[2] else None
-        d_w3 = e.T @ d_total if need[3] else None
+        d_w3 = weight_grad(e, d_total) if need[3] else None
         return d_b1h, d_b2h, d_e, d_w3, d_bias3.to(t3), None, None, None, None, None

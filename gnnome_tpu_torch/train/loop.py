@@ -16,11 +16,10 @@ Counterpart of ``gnnome_tpu/train/loop.py`` (reference ``train.train``,
   * a checkpoint every epoch and best-on-valid-loss weights
     (``train.py:525-528``), in the JAX package's format, with resume.
 
-``cfg.train.compute_dtype = "bfloat16"`` trains and scores the BatchNorm
-model with narrow gathers (the default ``Config``'s) in bf16 with f32
-master weights and Adam, as the JAX package does; :func:`train` refuses it
-for the LayerNorm model and the wide gathers, whose kernels have no bf16
-entries yet, rather than train something else.
+``cfg.train.compute_dtype = "bfloat16"`` trains and scores every model
+(BatchNorm or LayerNorm, narrow or wide gathers) in bf16 with f32 master
+weights and Adam, as the JAX package does; :func:`train` refuses an
+unknown dtype name before it reads any data.
 """
 from __future__ import annotations
 
@@ -210,12 +209,9 @@ def make_cluster_fns(cfg: Config):
 
 
 def _check_supported(cfg: Config) -> None:
-    """Refuse what the port has not got, rather than train something else:
-    bf16 with the LayerNorm model or wide gathers (``compute_dtype_of``).
-    ``"auto"`` gathers are narrow (:func:`resolve_perf`)."""
-    wide = cfg.train.wide_gathers
-    compute_dtype_of(cfg.train.compute_dtype, cfg.model.batch_norm,
-                     False if wide == "auto" else wide)
+    """Refuse a configuration the port cannot train before any data is
+    read: an unknown ``compute_dtype`` name (``compute_dtype_of``)."""
+    compute_dtype_of(cfg.train.compute_dtype)
 
 
 def train(train_path: str, valid_path: Optional[str] = None, out: str = "model",

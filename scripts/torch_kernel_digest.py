@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Digests of every f32 kernel entry's outputs, for comparing two checkouts.
+"""Digests of kernel entries' outputs, for comparing two checkouts.
 
     python3 scripts/torch_kernel_digest.py [--root DIR] [--seed N]
 
 Runs each float32 entry of the kernel library of the ``gnnome_tpu_torch``
 package under ``--root`` (default: this checkout) once on seeded inputs at
 the main path's shapes (``chip_smoke.py``'s local 150k / 1M bench graph,
-D = 256; the row gather also at 64 and 512, the segment sums also at 512)
-and prints one JSON line: the sha256 of each output's bytes. Every entry
-sums in a fixed order, so the same code gives the same bits in every
-process; two checkouts' lines are equal exactly where their f32 entries
-compute the same bits. Needs an NVIDIA card.
+D = 256; the row gather also at 64 and 512, the segment sums also at 512),
+then each bf16 entry of the BatchNorm narrow path (rows 1-9; the gate
+front also at D = 512) on bf16 inputs, and prints one JSON line: the
+sha256 of each output's bytes. Every entry sums in a fixed order, so the
+same code gives the same bits in every process; two checkouts' lines are
+equal exactly where their entries compute the same bits. Needs an NVIDIA
+card.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ def main() -> int:
     def digest(*outs):
         h = hashlib.sha256()
         for t in outs:
-            h.update(t.contiguous().cpu().numpy().tobytes())
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
     node, node2, edge, edge2 = randn(n, d), randn(n, 2 * d), randn(e, d), randn(e, d)
@@ -92,6 +94,28 @@ def main() -> int:
                                                            affine, g.by_dst))
         out["rev_bwd"] = digest(*rev_bwd(edge, node2, node, g.by_src, g.dst))
         out["opp_bwd"] = digest(*opp_bwd(edge, node2, node, g.by_src))
+
+        # the bf16 entries of rows 1-9 (f32 sums, moments, affine, g_sums)
+        def bf(*shape, scale=1.0):
+            return randn(*shape, scale=scale).to(torch.bfloat16)
+
+        for width in (64, d):
+            out[f"take_rows_bf16[{width}]"] = digest(take_rows(bf(n, width), g.src))
+        for width in (d, 2 * d):
+            out[f"gate_front_bf16[{width}]"] = digest(*gate_front(
+                bf(n, width), bf(n, width), bf(e, width), bf(width, width, scale=width ** -0.5),
+                bf(width), g.src, g.dst, g.n_edges))
+        b_node, b_edge, b_edge2 = bf(n, d), bf(e, d), bf(e, d)
+        out["gate_sigma_gather_bf16"] = digest(*gate_sigma_gather(b_edge, b_edge2, b_node,
+                                                                  affine, g.by_dst, g.src))
+        out["sigma_reverse_sum_bf16"] = digest(sigma_reverse_sum(b_edge, b_node, g.by_src, g.dst))
+        out["segment_sum_bf16"] = digest(segment_sum(b_edge, g.by_dst),
+                                         segment_sum(b_edge, g.by_src))
+        out["gate_front_bwd_bf16"] = digest(*gate_front_bwd(b_edge, b_edge2,
+                                                            randn(2, d, scale=1e-6), g.n_edges))
+        out["epilog_bwd_bf16"] = digest(*epilog_bwd(b_edge, b_edge2, bf(e, d), node2, b_node,
+                                                    affine, g.by_dst, g.src))
+        out["rev_bwd_bf16"] = digest(*rev_bwd(b_edge, node2, b_node, g.by_src, g.dst))
         torch.cuda.synchronize()
     launched = sorted(k.name for k in cuda_lib.KERNELS.values() if k.launches)
     print(json.dumps({"card": cs.card_name_and_power(), "root": str(root),

@@ -511,10 +511,14 @@ def test_bf16_forward_kernels(cuda, d):
 
 
 @pytest.mark.parametrize("n_rows,n_real,d", [(1037, 300, 256), (1037, 1037, 512),
-                                             (1037, 300, 30)])
+                                             (1037, 300, 30), (1037, 300, 640),
+                                             (1037, 1037, 1030)])
 def test_gate_front_bf16_kernel_ragged(cuda, n_rows, n_real, d):
-    """A ragged last 64-row tile, real rows below the padded count, and
-    d = 512 (the W3 slice at its largest, one block an SM)."""
+    """A ragged last 64-row tile, real rows below the padded count, d = 512
+    (the W3 slice at its largest kept whole, one block an SM) and widths
+    above it, whose W3 slice comes in K tiles of 256 rows (640: two whole
+    tiles and a half one; 1030: d % 8 != 0, element loads, a last tile of
+    16 rows)."""
     rng = np.random.default_rng(25)
     n = 300
     ids = [torch.from_numpy(rng.integers(0, n, n_rows).astype(np.int32)).to(cuda)
@@ -594,3 +598,184 @@ def test_bf16_model_step_runs_the_bf16_entries(cuda):
     assert logits.dtype == torch.float32
     assert all(v.grad.dtype == torch.float32 and bool(torch.isfinite(v.grad).all())
                for v in leaves.values())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 entries of rows 10 and 11 (the LayerNorm and wide-gather paths)
+# ---------------------------------------------------------------------------
+
+BF16_WIDE_SHAPES = {"random": lambda dev: _graph(24, device=dev), "padded": _padded_graph,
+                    "hub": _hub_graph}
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("shape", list(BF16_WIDE_SHAPES))
+def test_bf16_wide_kernels(cuda, shape, d):
+    """Row 10's three forms and their backward walks, row 11 and its VJP,
+    in bf16 against their plain versions on a random graph, on one whose
+    padded tail outnumbers its real edges and on one with a hub row: f32
+    sums and d_affine (as a mean) to TOL, bf16 outputs to one ulp + 1e-5,
+    each launch of only its own entry, the walks alike bit for bit in two
+    calls and zero on padded edges."""
+    g, rng = BF16_WIDE_SHAPES[shape](cuda)
+    n, e_pad = g.n_nodes_padded, g.n_edges_padded
+    e, table, rows = (_bf(rng, e_pad, d, device=cuda), _bf(rng, n, d, device=cuda),
+                      _bf(rng, e_pad, d, device=cuda))
+    g_sums = _randn(rng, n, 2 * d, device=cuda)
+    for form, csr, values, ids in (("gather", g.by_dst, table, g.src),
+                                   ("", g.by_dst, rows, None), ("by_src", g.by_src, rows, None)):
+        tail = f"_{form}_bf16" if form else "_bf16"
+        with _launched("sigma_aggregate" + tail):
+            sums = sigma_aggregate(e, values, csr, ids)
+        torch.testing.assert_close(sums, sigma_aggregate_plain(e, values, csr, ids), **TOL)
+        name = ("sigma_aggregate_bwd_" + form if form else "sigma_aggregate_bwd") + "_bf16"
+        with _launched(name):
+            got = sigma_aggregate_bwd(e, g_sums, values, csr, ids)
+        for a, b in zip(got, sigma_aggregate_bwd_plain(e, g_sums, values, csr, ids)):
+            _assert_bf16_close(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(got, sigma_aggregate_bwd(e, g_sums, values,
+                                                                              csr, ids)))
+        assert (got[0][g.n_edges:] == 0).all() and (got[1][g.n_edges:] == 0).all()
+    affine = _affine(rng, d, cuda)
+    gate, e_in = _bf(rng, e_pad, d, device=cuda), _bf(rng, e_pad, d, device=cuda)
+    with _launched("gate_sigma_aggregate_bf16"):
+        sums, e_new = gate_sigma_gather(gate, e_in, rows, affine, g.by_dst)
+    ref_sums, ref_e_new = gate_sigma_gather_plain(gate, e_in, rows, affine, g.by_dst)
+    _assert_bf16_close(e_new, ref_e_new)  # padded edges included
+    torch.testing.assert_close(sums, ref_sums, **TOL)
+    # the VJP takes e_in: it recomputes the f32 e_new
+    args = (gate, e_in, _bf(rng, e_pad, d, device=cuda), g_sums, rows, affine, g.by_dst)
+    with _launched("epilog_bwd_pregathered_bf16"):
+        got = epilog_bwd(*args)
+    ref = epilog_bwd_plain(*args)
+    for a, b in zip(got[:3], ref[:3]):
+        _assert_bf16_close(a, b)
+    torch.testing.assert_close(got[3] / e_pad, ref[3] / e_pad, **TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, epilog_bwd(*args)))
+    assert (got[2][g.n_edges:] == 0).all()
+
+
+def _bf16_leaf_errors(got, ref, ref_f32):
+    """Per leaf, the card's bf16 gradient against the CPU's bf16 one, and
+    the CPU's bf16 against its f32 (bf16's own distance), as relative
+    norms; leaves whose f32 gradient is below 1e-6 of the whole's are
+    BatchNorm-cancelled noise and left out."""
+    total = torch.sqrt(sum((v.double() ** 2).sum() for v in ref_f32.values()))
+    out = {}
+    for k, r in ref_f32.items():
+        if r.norm() > 1e-6 * total:
+            out[k] = (float((got[k] - ref[k]).norm() / ref[k].norm()),
+                      float((ref[k] - r).norm() / r.norm()))
+    return out
+
+
+def _bf16_step_grads(cfg, g_by_device, rng, kw):
+    """Gradients of one ``remat="layer"`` autograd step of the model ``cfg``
+    on each (graph, device) of ``g_by_device``: the card in bf16, the CPU in
+    bf16 and f32; and the card's launch counts."""
+    g0 = next(iter(g_by_device.values()))
+    e_feat = rng.standard_normal((g0.n_edges_padded, 2)).astype(np.float32)
+    pe = rng.standard_normal((g0.n_nodes_padded, cfg.nb_pos_enc + 2)).astype(np.float32)
+    y = (rng.random(g0.n_edges_padded) < 0.7).astype(np.float32)
+    out, launches = {}, None
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"), ("cpu", "float32")):
+        graph = g_by_device[dev]
+        params = init_model_params(torch.Generator().manual_seed(0), cfg, dev)
+        leaves = dict(iter_leaves(params))
+        for leaf in leaves.values():
+            leaf.requires_grad_(True)
+        for k in KERNELS.values():
+            k.launches = 0
+        logits = model_forward(params, graph, torch.from_numpy(e_feat).to(dev),
+                               torch.from_numpy(pe).to(dev), remat="layer",
+                               compute_dtype=dtype, **kw)
+        bce_with_logits(logits, torch.from_numpy(y).to(dev), graph.edge_mask,
+                        torch.tensor(0.5, device=dev)).backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in KERNELS.items() if k.launches}
+            assert bool(torch.isfinite(logits).all())
+        out[(dev, dtype)] = {k: v.grad.cpu() for k, v in leaves.items()}
+    return out, launches
+
+
+@pytest.mark.parametrize("variant", ["layernorm", "wide", "wide_src", "layernorm_wide"])
+def test_bf16_model_step_kernels_match_plain(cuda, variant):
+    """One bf16 autograd step of a 2-layer model of each LayerNorm and wide
+    variant on the card: the launches of the bf16 entries only (the f32
+    counts of STEP_LAUNCHES, renamed), and each leaf's gradient within twice
+    bf16's own distance (the CPU's bf16 against its f32) of the CPU's bf16
+    gradient (the plain versions, which round where the kernels round)."""
+    batch_norm, wide = VARIANTS[variant]
+    g_cpu, rng = _graph(14, device="cpu")
+    cfg = ModelConfig(hidden_features=64, num_gnn_layers=2, nb_pos_enc=4)
+    grads, launches = _bf16_step_grads(cfg, {"cuda": _graph(14, device=cuda)[0], "cpu": g_cpu},
+                                       rng, dict(batch_norm=batch_norm, wide_gathers=wide))
+    assert launches == {f"{k}_bf16": v for k, v in STEP_LAUNCHES[variant].items()}, launches
+    errs = _bf16_leaf_errors(grads[("cuda", "bfloat16")], grads[("cpu", "bfloat16")],
+                             grads[("cpu", "float32")])
+    for k, (card, own) in errs.items():
+        assert card <= 2 * own + 1e-3, (k, card, own)
+
+
+def test_bf16_layer_step_at_640(cuda):
+    """bf16 above D = 512 (the gate front's W3 slice in K tiles, and
+    ``epilog_bwd_bf16``'s instance for rows of 80 chunks, which spills): one
+    ``"layer"`` step of a 2-layer, D = 640 BatchNorm model on the card,
+    with the bf16 entries' launches and gradients as in
+    test_bf16_model_step_kernels_match_plain."""
+    g_cpu, rng = _graph(15, device="cpu")
+    cfg = ModelConfig(hidden_features=640, num_gnn_layers=2, nb_pos_enc=4)
+    grads, launches = _bf16_step_grads(cfg, {"cuda": _graph(15, device=cuda)[0], "cpu": g_cpu},
+                                       rng, {})
+    assert launches == {f"{k}_bf16": v for k, v in STEP_LAUNCHES["batchnorm"].items()}, launches
+    errs = _bf16_leaf_errors(grads[("cuda", "bfloat16")], grads[("cpu", "bfloat16")],
+                             grads[("cpu", "float32")])
+    for k, (card, own) in errs.items():
+        assert card <= 2 * own + 1e-3, (k, card, own)
+
+
+@pytest.mark.parametrize("variant", ["batchnorm", "wide"])
+def test_bf16_weight_grads_take_an_f32_result(cuda, variant, monkeypatch):
+    """Every weight-gradient product of one bf16 step of a 2-layer, D = 256
+    model on the 150k-node / 1M-edge bench graph (the gate front's d_W3, the
+    wide path's B3 product and the dense layers' d_w, reduction lengths 1M
+    and 150k) is the f32-result product rounded once
+    (``torch.mm(..., out_dtype=torch.float32)``), bit for bit; against the
+    f64 product rounded once, it has at most 1% of its elements more than
+    one bf16 ulp off, and no more than a bf16-output product of the same
+    operands (which reduces in bf16 where PyTorch lets cuBLAS)."""
+    from gnnome_tpu_torch.data.synthetic import bench_features, bench_labels, build_bench_graph
+    from gnnome_tpu_torch.ops import dense, gate_front as gate_front_mod
+
+    graph, _ = build_bench_graph(150_000, 1_000_000, seed=0, device=cuda)
+    orig, seen = dense.weight_grad, []
+
+    def weight_grad(x, g):
+        out = orig(x, g)
+        seen.append((x.detach(), g.detach(), out))
+        return out
+
+    monkeypatch.setattr(dense, "weight_grad", weight_grad)
+    monkeypatch.setattr(gate_front_mod, "weight_grad", weight_grad)
+    cfg = ModelConfig(num_gnn_layers=2)
+    params = init_model_params(torch.Generator().manual_seed(0), cfg, cuda)
+    for leaf in dict(iter_leaves(params)).values():
+        leaf.requires_grad_(True)
+    e_feat, pe = bench_features(graph, 0, cfg.nb_pos_enc)
+    logits = model_forward(params, graph, e_feat, pe, remat="layer", compute_dtype="bfloat16",
+                           wide_gathers=variant == "wide")
+    bce_with_logits(logits, bench_labels(graph, 0), graph.edge_mask,
+                    torch.tensor(0.5, device=cuda)).backward()
+    torch.cuda.synchronize()
+    assert max(x.shape[0] for x, _, _ in seen) >= 999_995
+    for x, g, out in seen:
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, torch.mm(x.t(), g, out_dtype=torch.float32).to(torch.bfloat16))
+        ref = (x.double().t() @ g.double()).to(torch.bfloat16).double()
+        ulp = _bf16_ulp(ref)  # a power of two: exact in f32
+        over = int(((out.double() - ref).abs() > ulp).sum())
+        over_bf16 = int(((x.t().mm(g).double() - ref).abs() > ulp).sum())
+        print(f"K={x.shape[0]} [{x.shape[1]}, {g.shape[1]}]: {over} of {ref.numel()} beyond one "
+              f"ulp (bf16-output product: {over_bf16})")
+        assert over <= 0.01 * ref.numel() and over <= over_bf16, (x.shape, over, over_bf16)

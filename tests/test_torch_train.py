@@ -541,10 +541,10 @@ def test_train_loop_overfits_and_resumes(genome_root, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(genome_root, tmp_path, monkeypatch):
-    """bf16 with the LayerNorm model is refused (bf16 covers the BatchNorm
-    model with narrow gathers: tests/test_torch_bf16.py); the default
-    ClusterGCN regime (500 parts, batches of 50 clusters, jitter 100) is
-    accepted and trains on pieces."""
+    """An unknown ``compute_dtype`` is refused before any data is read (bf16
+    covers every model: tests/test_torch_bf16.py); the default ClusterGCN
+    regime (500 parts, batches of 50 clusters, jitter 100) is accepted and
+    trains on pieces."""
     from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset
 
     cfg = _small_cfg(tmp_path)
@@ -565,10 +565,11 @@ def test_train_refuses_what_is_not_ported(genome_root, tmp_path, monkeypatch):
     (_, s), = AssemblyGraphDataset(genome_root, nb_pos_enc=8, device="cpu")
     # several pieces, which cover the graph once
     assert len(piece_nodes) > 1 and sum(piece_nodes) == s.graph.n_nodes
-    cfg = _small_cfg(tmp_path, compute_dtype="bfloat16")
+    cfg = _small_cfg(tmp_path, compute_dtype="float16")
     cfg.model.batch_norm = False
-    with pytest.raises(NotImplementedError, match="LayerNorm and wide-gather"):
-        loop.train(genome_root, None, overfit=True, cfg=cfg, device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype='float16'"):
+        loop.train(str(tmp_path / "no_such_dataset"), None, overfit=True, cfg=cfg,
+                   device="cpu")
     assert JaxConfig().train.num_parts_train == Config().train.num_parts_train > 1
 
 
