@@ -92,8 +92,9 @@ stopped); any failure raises and exits non-zero:
              (BatchNorm under ``"layer"`` and ``"none"``, LayerNorm, wide,
              LayerNorm + wide under ``"layer"``: launches of bf16 entries
              only, ms, edges/s, peak, idle share, the four losses beside
-             phase 4's f32 losses); the bf16 gate front at D = 640 (its W3
-             slice in K tiles) against its plain version and a bf16
+             phase 4's f32 losses); the bf16 gate front at D = 640 (five
+             column blocks of 128, each W3 slice resident) against its
+             plain version, timed beside its bound, and a bf16
              BatchNorm step of a 4-layer, D = 640 model; one ClusterGCN
              training epoch under the default ``Config`` in bf16 (ms per
              piece step).
@@ -358,6 +359,10 @@ def phase_parity_bf16(torch, graph, seed: int) -> list[dict]:
            lambda: gate_front_plain(*args), None,
            (2 * e * d + (u_src + u_dst) * d + d * d + d) * 2 + 2 * d * 4 + 2 * e * 4,
            2 * e * d * d, ops_per_s=BF16_TC_OPS_PER_S)
+    # cuBLAS's bf16 e·W3 + b3 alone, which the port never calls for this row
+    addmm_ms = time_ms(torch, lambda: torch.addmm(args[4], args[2], args[3]))
+    rows_out[-1]["addmm_bf16_ms"] = addmm_ms
+    log(f"  note: torch.addmm(b3, e, W3) in bf16 (cuBLAS, the product alone) {addmm_ms:.4f} ms")
     gate, e_in = got[0], args[2]
     del got, ref, args
 
@@ -1008,7 +1013,7 @@ def phase_training(torch, graph, seed: int, runs=TRAIN_RUNS,
 
 PORT_KERNELS = {  # device kernel name -> the wrapper(s) that launch it
     "gate_front_kernel": "gate_front", "moments_reduce_kernel": "gate_front",
-    "gate_front_bf16_kernel": "gate_front",
+    "gate_front_bf16_kernel": "gate_front", "gate_front_bf16_tma_kernel": "gate_front",
     "w3_split_kernel": "gate_front",
     "gate_sigma_gather_kernel": "gate_sigma_gather",
     "gate_sigma_aggregate_kernel": "gate_sigma_aggregate",
@@ -1036,8 +1041,8 @@ def kernel_group(name: str) -> str:
     if base == "segment_sum_kernel":  # template <T, VEC, ORDERED>: by_src is ordered
         tail = " (bf16)" if "bfloat16" in name else ""
         return f"port: segment_sum_by_{'src' if 'true>' in name else 'dst'}{tail}"
-    if base in PORT_KERNELS:  # a bf16 instance names __nv_bfloat16 (or is gate_front_bf16)
-        bf16 = "bfloat16" in name or base == "gate_front_bf16_kernel"
+    if base in PORT_KERNELS:  # a bf16 instance names __nv_bfloat16 (or is a gate_front_bf16)
+        bf16 = "bfloat16" in name or base.startswith("gate_front_bf16_")
         return f"port: {PORT_KERNELS[base]}{' (bf16)' if bf16 else ''}"
     if "gemm" in name.lower() or "cutlass" in name.lower() or name.startswith("nvjet"):
         return "cuBLAS products"  # nvjet_*: cuBLASLt's kernels for Hopper
@@ -1607,8 +1612,9 @@ WIDE_D, WIDE_LAYERS = 640, 4  # the bf16 step above D = 512, at a cut depth
 
 
 def phase_wide_bf16(torch, graph, seed: int) -> dict:
-    """The bf16 gate front at D = WIDE_D (its W3 slice in K tiles) against
-    its plain version, then one bf16 BatchNorm ``"layer"`` step of a
+    """The bf16 gate front at D = WIDE_D (five column blocks of 128, each
+    with its W3 slice resident) against its plain version, timed beside its
+    bound, then one bf16 BatchNorm ``"layer"`` step of a
     WIDE_LAYERS-deep, WIDE_D-wide model (every bf16 entry of the narrow
     path at that width, ``epilog_bwd_bf16``'s instance for rows of 80
     chunks among them): launch counts, a finite loss, ms; returns the
@@ -1625,14 +1631,18 @@ def phase_wide_bf16(torch, graph, seed: int) -> dict:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    n, e = graph.n_nodes_padded, graph.n_edges_padded
+    n, e, er = graph.n_nodes_padded, graph.n_edges_padded, graph.n_edges
     with torch.inference_mode():
         args = (randn(n, d), randn(n, d), randn(e, d), randn(d, d, scale=d ** -0.5),
-                randn(d), graph.src, graph.dst, graph.n_edges)
+                randn(d), graph.src, graph.dst, er)
         err = check_gate_front_bf16(torch, gate_front(*args), gate_front_plain(*args), args)
         ms = time_ms(torch, lambda: gate_front(*args))
+        u_src = int(torch.unique(graph.src[:er]).numel())
+        u_dst = int(torch.unique(graph.dst[:er]).numel())
+        b_ms, b_by = bound((2 * e * d + (u_src + u_dst) * d + d * d + d) * 2 + 2 * d * 4
+                           + 2 * e * 4, 2 * e * d * d, BF16_TC_OPS_PER_S)
         log(f"  gate_front_bf16 at D = {d}: max_abs_err={err:.3e} (tol see "
-            f"check_gate_front_bf16) ms={ms:.4f}")
+            f"check_gate_front_bf16) ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
         del args
     cfg = ModelConfig(hidden_features=d, num_gnn_layers=WIDE_LAYERS)
     e_feat, pe = bench_features(graph, seed, cfg.nb_pos_enc)

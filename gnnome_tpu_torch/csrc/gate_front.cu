@@ -116,9 +116,9 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, int byte
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
-// the e tile [BM][A_LD] at (column k0, row row0): rows past the end and
-// columns past d arrive as zeros
-__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int k0, int row0,
+// the box of a 2-D tensor map at (column k0, row row0): rows past the end
+// and columns past d arrive as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int k0, int row0,
                                             uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -506,9 +506,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The e tile's TMA descriptor: [n_rows, d] f32, boxes of BM rows x A_LD
-// columns, zeros outside.
-cudaError_t e_tensor_map(CUtensorMap* map, const float* e, int64_t n_rows, int d) {
+// A 2-D TMA descriptor of a row-major [n_rows, d] array of `elem`-byte
+// elements: boxes of box_rows rows x box_cols columns, zeros outside.
+cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                          size_t elem, int64_t n_rows, int d, cuuint32_t box_cols,
+                          cuuint32_t box_rows, CUtensorMapSwizzle swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -526,12 +528,12 @@ cudaError_t e_tensor_map(CUtensorMap* map, const float* e, int64_t n_rows, int d
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(n_rows > 0 ? n_rows : 1)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(float)};
-  const cuuint32_t box[2] = {A_LD, BM};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * elem};
+  const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(e), dims,
-                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult res = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -543,7 +545,11 @@ cudaError_t launch_front(const float* b1h, const float* b2h, const float* e,
                          int n_rows, int n_real, int d, int n_ks, int n_parts,
                          cudaStream_t s) {
   CUtensorMap map = {};
-  cudaError_t err = VEC == 4 ? e_tensor_map(&map, e, n_rows, d) : cudaSuccess;
+  // the e tile [BM][A_LD] f32, unswizzled
+  cudaError_t err = VEC == 4 ? tensor_map_2d(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, e,
+                                             sizeof(float), n_rows, d, A_LD, BM,
+                                             CU_TENSOR_MAP_SWIZZLE_NONE)
+                             : cudaSuccess;
   if (err != cudaSuccess) return err;
   err = gnnome::allow_smem(gate_front_kernel<VEC>, SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -562,33 +568,39 @@ cudaError_t launch_front(const float* b1h, const float* b2h, const float* e,
 //   gate = bf16((pb + b1h[src]) + b2h[dst])   the endpoint rows in f32
 //   mom  = [sum gate || sum gate^2] over real rows, of the ROUNDED gate, in f32.
 // A product of two bf16 values is exact in f32, so one bf16 tensor-core
-// product with an f32 accumulator (mma.sync.m16n8k16) computes e . W3 as
-// JAX does, up to the order of the sums; no split is needed.
+// product with an f32 accumulator computes e . W3 as JAX does, up to the
+// order of the sums; no split is needed.
 //
 // Bound on the H100: bytes. At E = 1M, D = 256: e and gate 512 MB each, the
 // two node tables 77 MB each, ids 8 MB: about 1.19 GB, 0.355 ms at
 // 3.35 TB/s; e . W3 is 131 GFLOP, 0.13 ms at the dense bf16 rate.
 //
-// Design (simple first): a block owns 128 output columns (gridDim.y blocks
-// cover d) and walks 64-edge row tiles, blockIdx-strided. Its W3 slice is
-// cut into K tiles: one tile of the whole padded depth for d <= 512, which
-// stays in shared memory for the whole walk, else tiles of 256 rows,
-// brought in again for every row tile (any d the f32 entry takes). Per row
-// tile and K tile: cp.async brings the matching columns of the e tile to
-// shared memory, eight warps (4 row groups of 16 x 2 column halves of 64)
-// run mma.sync on ldmatrix fragments into the same f32 accumulators, in
-// the same k order whatever the tiling (the sums, and so the outputs, do
-// not depend on it); then the product is rounded
-// to bf16 into shared memory, and each half-warp finishes a row: gathers
-// the endpoint rows (16 bytes a lane), adds, stores the gate row and adds
-// real rows into the moments it keeps in registers. Two blocks share an SM,
-// so one block's loads and epilogue overlap the other's products. Moments
-// leave as one partial row per block, summed in a fixed order
-// (moments_reduce_kernel): deterministic, no float atomics.
+// Two instances, picked by shape by the wrapper's launch plan
+// (ops/gate_front.py gate_front_bf16_plan), never on a failure:
+// - bfh::gate_front_bf16_tma_kernel where TMA can read e: d % 8 == 0
+//   (16-byte rows) and 16-byte aligned bases, for every d whose W3 column
+//   slice fits in shared memory (d <= 2944, at BN = 32);
+// - bf::gate_front_bf16_kernel otherwise: element by element, any d.
+//
+// Moments leave either instance as one partial row per block, summed in a
+// fixed order by moments_reduce_kernel: deterministic, no float atomics,
+// padded rows written but never summed.
 namespace bf {
 
 using gnnome::bf16;
 
+// The element-wise instance (its W3 slice K-tiled above d = 512): a
+// block owns 128 output columns (gridDim.y blocks cover d) and walks 64-edge
+// row tiles, blockIdx-strided. Its W3 slice is cut into K tiles: one tile
+// of the whole padded depth for d <= 512, which stays in shared memory for
+// the whole walk, else tiles of 256 rows, brought in again for every row
+// tile. Per row tile and K tile the threads copy the matching columns of
+// the e tile to shared memory, eight warps (4 row groups of 16 x 2 column
+// halves of 64) run mma.sync on ldmatrix fragments into the same f32
+// accumulators, in the same k order whatever the tiling; then the product
+// is rounded to bf16 into shared memory, and each half-warp finishes a row:
+// gathers the endpoint rows, adds, stores the gate row and adds real rows
+// into the moments it keeps in registers. Two blocks share an SM.
 constexpr int BM = 64;     // edges per row tile
 constexpr int BN = 128;    // output columns per block
 constexpr int WARPS = 8;   // 4 row groups of 16 rows x 2 column halves of 64
@@ -640,19 +652,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// VEC = 8: d % 8 == 0 and 16-byte aligned rows (cp.async of the e tile,
-// 16-byte epilogue accesses); VEC = 1: any d, element by element.
-template <int VEC>
 __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
     const bf16* __restrict__ b1h, const bf16* __restrict__ b2h, const bf16* __restrict__ e,
     const bf16* __restrict__ w3, const bf16* __restrict__ b3, const int* __restrict__ src,
@@ -679,15 +678,9 @@ __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
       const int k = kb + kr;
       bf16* p = ws + kr * W_LD + n8;
       const int col = col0 + n8;
-      if constexpr (VEC == 8) {
-        uint4 u = make_uint4(0u, 0u, 0u, 0u);
-        if (k < d && col < d) u = *reinterpret_cast<const uint4*>(w3 + static_cast<int64_t>(k) * d + col);
-        *reinterpret_cast<uint4*>(p) = u;
-      } else {
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          p[q] = k < d && col + q < d ? w3[static_cast<int64_t>(k) * d + col + q] : zero;
-      }
+      for (int q = 0; q < 8; ++q)
+        p[q] = k < d && col + q < d ? w3[static_cast<int64_t>(k) * d + col + q] : zero;
     }
   };
   if (whole) load_w3(0);
@@ -727,16 +720,10 @@ __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
         const int r = i / (kt / 8), k8 = kb + (i % (kt / 8)) * 8;
         bf16* p = es + r * e_ld + (k8 - kb);
         const int row = row0 + r;
-        if constexpr (VEC == 8) {
-          const bool in = row < n_rows && k8 < d;
-          cp_async16(p, in ? e + static_cast<int64_t>(row) * d + k8 : e, in ? 16 : 0);
-        } else {
 #pragma unroll
-          for (int q = 0; q < 8; ++q)
-            p[q] = row < n_rows && k8 + q < d ? e[static_cast<int64_t>(row) * d + k8 + q] : zero;
-        }
+        for (int q = 0; q < 8; ++q)
+          p[q] = row < n_rows && k8 + q < d ? e[static_cast<int64_t>(row) * d + k8 + q] : zero;
       }
-      if constexpr (VEC == 8) cp_async_wait_all();
       __syncthreads();
 
       const int k_end = kp - kb < kt ? kp - kb : kt;
@@ -767,21 +754,14 @@ __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
     for (int r = warp * 2 + (lane >> 4); r < BM; r += 2 * WARPS) {
       const int row = row0 + r;
       if (row >= n_rows) break;
-      float p[8], x1[8] = {}, x2[8] = {}, gv[8];
+      float p[8], x1[8], x2[8], gv[8];
       gnnome::load_vec<8>(es + r * W_LD + cl, p);
       const int64_t s_row = static_cast<int64_t>(src[row]) * d;
       const int64_t d_row = static_cast<int64_t>(dst[row]) * d;
-      if constexpr (VEC == 8) {
-        if (c < d) {
-          gnnome::load_vec<8>(b1h + s_row + c, x1);
-          gnnome::load_vec<8>(b2h + d_row + c, x2);
-        }
-      } else {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          x1[q] = c + q < d ? gnnome::to_f32(b1h[s_row + c + q]) : 0.0f;
-          x2[q] = c + q < d ? gnnome::to_f32(b2h[d_row + c + q]) : 0.0f;
-        }
+      for (int q = 0; q < 8; ++q) {
+        x1[q] = c + q < d ? gnnome::to_f32(b1h[s_row + c + q]) : 0.0f;
+        x2[q] = c + q < d ? gnnome::to_f32(b2h[d_row + c + q]) : 0.0f;
       }
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -789,13 +769,9 @@ __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
         gv[q] = gnnome::round_to<bf16>((pb + x1[q]) + x2[q]);
       }
       bf16* pg = gate + static_cast<int64_t>(row) * d + c;
-      if constexpr (VEC == 8) {
-        if (c < d) gnnome::store_vec_cs<8>(pg, gv);
-      } else {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          if (c + q < d) __stcs(pg + q, __float2bfloat16_rn(gv[q]));
-        }
+      for (int q = 0; q < 8; ++q) {
+        if (c + q < d) __stcs(pg + q, __float2bfloat16_rn(gv[q]));
       }
       if (row < n_real) {
 #pragma unroll
@@ -832,21 +808,466 @@ __global__ void __launch_bounds__(THREADS, 2) gate_front_bf16_kernel(
   }
 }
 
-template <int VEC>
 cudaError_t launch(const bf16* b1h, const bf16* b2h, const bf16* e, const bf16* w3,
                    const bf16* b3, const int* src, const int* dst, bf16* gate,
                    float* partial, int n_rows, int n_real, int d, int n_parts,
                    cudaStream_t s) {
   const size_t smem = smem_bytes(d);
-  cudaError_t err = gnnome::allow_smem(gate_front_bf16_kernel<VEC>, smem);
+  cudaError_t err = gnnome::allow_smem(gate_front_bf16_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_parts, (d + BN - 1) / BN);
-  gate_front_bf16_kernel<VEC><<<grid, THREADS, smem, s>>>(b1h, b2h, e, w3, b3, src, dst,
-                                                          gate, partial, n_rows, n_real, d);
+  gate_front_bf16_kernel<<<grid, THREADS, smem, s>>>(b1h, b2h, e, w3, b3, src, dst, gate,
+                                                     partial, n_rows, n_real, d);
   return cudaGetLastError();
 }
 
 }  // namespace bf
+
+// The TMA instance, designed for Hopper:
+// - Persistent blocks, one an SM: gridDim.y column blocks of BN output
+//   columns (BN from d: 256 up to d = 256, then 128, 64 or 32, the widest
+//   whose W3 slice fits) times gridDim.x walkers; block (x, y) walks the
+//   64-row tiles x, x + gridDim.x, ... The column blocks of a row tile run
+//   at once and at the same pace, so e leaves device memory once and the
+//   other column blocks find it in the L2.
+// - The block's W3 column slice stays in shared memory for the whole walk:
+//   loaded once, transposed 8 x 8 in registers into the K-major core-matrix
+//   order of the wgmma B operand ([k / 8][BN][8], no swizzle).
+// - Warpgroup 0 produces: one thread keeps TMA loads of e in flight, K
+//   slices of [64 rows x 64] bf16 (128-byte rows, 128-byte swizzle; rows
+//   past the end and columns past d arrive as zeros) into a ring of 4-8
+//   stages on full / empty mbarriers; setmaxnreg gives its registers away.
+// - Warpgroups 1 and 2 consume, tiles in turn (even and odd tiles of the
+//   walk), so one's epilogue runs while the other's products run; an order
+//   barrier each keeps their product loops in turn. For a tile: the
+//   endpoint rows of its first rows are gathered into registers;
+//   wgmma.m64nBNk16 (A: the ring's e slice by descriptor, swizzled as TMA
+//   wrote it; B: the resident W3 slice) sums e . W3 in f32 registers, k16
+//   step after k16 step in order, whatever BN, the ring or the grid (so
+//   the gate's bits depend on neither); the product is rounded to bf16 into
+//   a staging tile (stmatrix; 16-byte chunks swizzled by row); each warp
+//   finishes its 16 rows, BN / 8 lanes a row with 8 columns each (the
+//   endpoint rows of the first 4 steps load during the products, the rest
+//   all at once after them): bias, endpoint rows, the gate stored with
+//   16-byte streaming stores, the moments of real rows kept in registers.
+// - The moments of the eight consumer warps meet in shared memory in a
+//   fixed order and leave as the block's partial row.
+// What holds it above its bound (PERF.md section 6): at d = 256 the
+// epilogue's gathers and stores behind a ring of one tile; above d = 256
+// the L2: every column block reads all of e from it.
+namespace bfh {
+
+using gnnome::bf16;
+
+constexpr int TM = 64;                    // rows per tile: one wgmma m64
+constexpr int KS = 64;                    // K per ring slice: one 128-byte swizzle row
+constexpr int SLICE_BYTES = TM * KS * 2;  // 8 KB a stage
+constexpr int THREADS = 384;              // warpgroup 0 loads, 1 and 2 compute
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+// K slices of the product: d padded to whole slices (the W3 slice's rows
+// past d are zeros, as TMA's e columns past d are)
+__host__ __device__ inline int k_slices(int d) { return (d + KS - 1) / KS; }
+
+// 1024 bytes of slack to align the ring for the 128-byte swizzle; the ring,
+// the W3 slice [KS k_slices][BN], two staging tiles [TM][BN], the ring's
+// full and empty barriers and the consumers' two order barriers
+inline size_t smem_bytes(int d, int bn, int stages) {
+  return 1024 + static_cast<size_t>(stages) * (SLICE_BYTES + 2 * sizeof(uint64_t)) +
+         static_cast<size_t>(k_slices(d)) * KS * bn * sizeof(bf16) +
+         2 * static_cast<size_t>(TM) * bn * sizeof(bf16) + 2 * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// the two consumer warpgroups (named barrier 1)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// A: a K-major [64 rows][64] bf16 slice as TMA wrote it with the 128-byte
+// swizzle (a 1024-byte aligned stage): 8-row groups 1024 bytes apart
+// (stride byte offset); a k16 step starts 32 bytes on in the row; the
+// leading byte offset is unused for this layout
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+// B: the W3 slice [k / 8][BN][8], K-major without swizzle: core matrices of
+// 8 columns x 8 k, 128 contiguous bytes each; the next 8 k lie BN * 16
+// bytes on (leading byte offset), the next 8 columns 128 bytes on (stride
+// byte offset)
+template <int BN>
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(BN) << 16) |
+         (uint64_t{128 >> 4} << 32);
+}
+
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1,
+                                            uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+
+// the position of 16-byte chunk ch in staging row `row`: chunks swizzled
+// by the row, so stmatrix's eight rows of one chunk fall on distinct banks
+template <int BN>
+__device__ __forceinline__ int chunk_at(int row, int ch) {
+  constexpr int MASK = (BN / 8 < 8 ? BN / 8 : 8) - 1;
+  return ch ^ (row & MASK);
+}
+
+#define GNNOME_D8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),     \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A . B over one k16 step: A [64, 16] bf16 and B [16, N] bf16 from
+// shared memory (descriptors), both K-major; scale_d = 0 overwrites d.
+// d[4j + 2h + c] is row 16 * (warp % 4) + lane / 4 + 8h, column
+// 8j + 2 * (lane % 4) + c.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : GNNOME_D8(0), GNNOME_D8(8)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : GNNOME_D8(0), GNNOME_D8(8), GNNOME_D8(16), GNNOME_D8(24)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : GNNOME_D8(0), GNNOME_D8(8), GNNOME_D8(16), GNNOME_D8(24), GNNOME_D8(32),
+          GNNOME_D8(40), GNNOME_D8(48), GNNOME_D8(56)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : GNNOME_D8(0), GNNOME_D8(8), GNNOME_D8(16), GNNOME_D8(24), GNNOME_D8(32),
+          GNNOME_D8(40), GNNOME_D8(48), GNNOME_D8(56), GNNOME_D8(64), GNNOME_D8(72),
+          GNNOME_D8(80), GNNOME_D8(88), GNNOME_D8(96), GNNOME_D8(104), GNNOME_D8(112),
+          GNNOME_D8(120)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+#undef GNNOME_D8
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1) gate_front_bf16_tma_kernel(
+    const __grid_constant__ CUtensorMap e_map, const bf16* __restrict__ b1h,
+    const bf16* __restrict__ b2h, const bf16* __restrict__ w3, const bf16* __restrict__ b3,
+    const int* __restrict__ src, const int* __restrict__ dst, bf16* __restrict__ gate,
+    float* __restrict__ partial, int n_rows, int n_real, int d, int stages) {
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tma) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int n_ks = k_slices(d);
+  bf16* w3s = reinterpret_cast<bf16*>(ring + stages * SLICE_BYTES);
+  bf16* stage_tiles = w3s + n_ks * KS * BN;  // [2][TM][BN], one per consumer
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage_tiles + 2 * TM * BN);
+  uint64_t* empty = full + stages;
+  uint64_t* order = empty + stages;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // warp-uniform to the compiler too (a shuffle of one lane's value), so the
+  // branches below are not divergent paths for the wgmmas
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int col0 = blockIdx.y * BN;
+  const int n_tiles = (n_rows + TM - 1) / TM;
+  const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
+                           ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+                           : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx, then TMA's bytes
+      mbar_init(&empty[s], 4);  // each warp of the warpgroup that read the stage
+    }
+    mbar_init(&order[0], 1);  // consumer 0 has all the K slices of a tile
+    mbar_init(&order[1], 1);  // consumer 1 likewise
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The W3 slice W3[:, col0 : col0 + BN] (zeros past d) in B order: a
+  // thread reads an 8 x 8 block, 8 rows k of 8 columns, and writes its
+  // transpose, 8 columns of 8 k; a column's 8 k are 16 bytes.
+  for (int i = tid; i < n_ks * (KS / 8) * (BN / 8); i += THREADS) {
+    const int kc = i / (BN / 8), nc = i % (BN / 8);
+    const int col = col0 + nc * 8;
+    uint32_t in[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int k = kc * 8 + r;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (k < d && col < d)
+        u = __ldg(reinterpret_cast<const uint4*>(w3 + static_cast<int64_t>(k) * d + col));
+      in[r][0] = u.x; in[r][1] = u.y; in[r][2] = u.z; in[r][3] = u.w;
+    }
+    uint4* out = reinterpret_cast<uint4*>(w3s + (kc * BN + nc * 8) * 8);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // column j: the low or high halves of word j / 2
+      const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+      out[j] = make_uint4(__byte_perm(in[0][j >> 1], in[1][j >> 1], sel),
+                          __byte_perm(in[2][j >> 1], in[3][j >> 1], sel),
+                          __byte_perm(in[4][j >> 1], in[5][j >> 1], sel),
+                          __byte_perm(in[6][j >> 1], in[7][j >> 1], sel));
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // wgmma reads it async
+  __syncthreads();
+
+  if (warp < 4) {
+    // the producer: slice ks of the block's j-th tile goes to ring position
+    // j * n_ks + ks, once the warpgroup that read that stage last is done
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (tid == 0) {
+      int it = 0;
+      for (int j = 0; j < my_tiles; ++j) {
+        const int row0 = (static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x)) * TM;
+        for (int ks = 0; ks < n_ks; ++ks, ++it) {
+          const int s = it % stages;
+          mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);  // the stage's last phase
+          mbar_expect(&full[s], SLICE_BYTES);
+          tma_load_2d(ring + s * SLICE_BYTES, &e_map, ks * KS, row0, &full[s]);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    constexpr int LPR = BN / 8;              // lanes of a tile row in the epilogue
+    constexpr int RPI = 32 / LPR;            // rows a warp finishes at once
+    constexpr int NIT = 16 / RPI;            // steps over the warp's 16 rows
+    constexpr int PF = NIT < 4 ? NIT : 4;    // steps whose endpoint rows load during the products
+    const int c = (warp >> 2) - 1;           // consumer 0 or 1: even or odd tiles of the walk
+    const int cw = warp & 3;                 // tile rows 16 cw .. 16 cw + 15
+    const int ch = lane % LPR, lr = lane / LPR;  // this lane's chunk, its row of a step
+    const int cc = col0 + ch * 8;            // the chunk's first column
+    const bool col_in = cc < d;
+    bf16* stg = stage_tiles + c * TM * BN;
+    const uint32_t ring_u32 = smem_u32(ring), w3_u32 = smem_u32(w3s);
+    float bias[8], m0[8], m1[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      bias[q] = col_in ? gnnome::to_f32(b3[cc + q]) : 0.0f;
+      m0[q] = m1[q] = 0.0f;
+    }
+    auto row0_of = [&](int j) {
+      return (static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x)) * TM;
+    };
+    // the endpoint ids of this warp's 16 rows of tile j: lane k < 16 holds
+    // src of row 16 cw + k, lane 16 + k its dst
+    auto load_ids = [&](int j) {
+      if (j >= my_tiles) return 0;
+      const int r = row0_of(j) + cw * 16 + (lane & 15);
+      return r < n_rows ? (lane < 16 ? src[r] : dst[r]) : 0;
+    };
+    float acc[BN / 2];
+    uint4 x1[NIT], x2[NIT];
+    int ids = load_ids(c);
+    for (int j = c; j < my_tiles; j += 2) {
+      const int row0 = row0_of(j);
+      // the endpoint rows of step q (warp row q RPI + lr), zeros past the end
+      auto gather = [&](int q, uint4& a, uint4& b) {
+        const int rw = q * RPI + lr;
+        const int s_id = __shfl_sync(0xffffffffu, ids, rw);
+        const int d_id = __shfl_sync(0xffffffffu, ids, 16 + rw);
+        a = b = make_uint4(0u, 0u, 0u, 0u);
+        if (col_in && row0 + cw * 16 + rw < n_rows) {
+          a = __ldg(reinterpret_cast<const uint4*>(b1h + static_cast<int64_t>(s_id) * d + cc));
+          b = __ldg(reinterpret_cast<const uint4*>(b2h + static_cast<int64_t>(d_id) * d + cc));
+        }
+      };
+#pragma unroll
+      for (int q = 0; q < PF; ++q) gather(q, x1[q], x2[q]);  // in flight during the products
+
+      // e . W3: the tile's K slices at ring positions j n_ks ..; a stage is
+      // given back once the products that read it are done. The consumers
+      // take turns: this one starts once the other has all the K slices of
+      // the tile before (its order barrier), so no wait on a stage's full
+      // barrier is more than one phase ahead of the loads, where its parity
+      // would name a phase already passed.
+      if (j > 0) mbar_wait(&order[1 - c], ((j - 1) >> 1) & 1);
+      const int it0 = j * n_ks;
+      auto slice = [&](int ks) {
+        const int it = it0 + ks, s = it % stages;
+        mbar_wait(&full[s], (it / stages) & 1);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) pin(acc[i]);
+        wgmma_fence();
+        const uint32_t a0 = ring_u32 + s * SLICE_BYTES;
+        const uint32_t b0 = w3_u32 + ks * (KS / 8) * BN * 16;
+#pragma unroll
+        for (int q = 0; q < KS / 16; ++q)
+          Wgmma<BN>::run(acc, a_desc(a0 + q * 32), b_desc<BN>(b0 + q * 2 * BN * 16),
+                         (ks | q) != 0);
+        wgmma_commit();
+      };
+      auto release = [&](int ks) {
+        if (lane == 0) mbar_arrive(&empty[(it0 + ks) % stages]);
+      };
+      slice(0);
+      for (int ks = 1; ks < n_ks; ++ks) {
+        slice(ks);
+        wgmma_wait<1>();  // slice ks - 1's products are done
+        release(ks - 1);
+      }
+      if (warp % 4 == 0 && lane == 0) mbar_arrive(&order[c]);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) pin(acc[i]);
+      release(n_ks - 1);
+      const int next_ids = load_ids(j + 2);
+
+      // this warp's 16 rows of the product, rounded to bf16, into its rows
+      // of the staging tile: 8 x 8 blocks (rows + 0 / + 8, chunks jj, jj + 1)
+      {
+        const int m = lane >> 3;
+        const int srow = cw * 16 + (m & 1) * 8 + (lane & 7);
+        const uint32_t row_u32 = smem_u32(stg + srow * BN);
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; jj += 2) {
+          stmatrix_x4(row_u32 + chunk_at<BN>(srow, jj + (m >> 1)) * 16,
+                      gnnome::pack2(acc[4 * jj], acc[4 * jj + 1]),
+                      gnnome::pack2(acc[4 * jj + 2], acc[4 * jj + 3]),
+                      gnnome::pack2(acc[4 * jj + 4], acc[4 * jj + 5]),
+                      gnnome::pack2(acc[4 * jj + 6], acc[4 * jj + 7]));
+        }
+      }
+      // the accumulators are free: the other steps' endpoint rows all load
+      // at once
+#pragma unroll
+      for (int q = PF; q < NIT; ++q) gather(q, x1[q], x2[q]);
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < NIT; ++q) {
+        const int rw = q * RPI + lr;
+        const int row = row0 + cw * 16 + rw;
+        const uint4 a = x1[q], b = x2[q];
+        if (row < n_rows && col_in) {
+          const int srow = cw * 16 + rw;
+          float p[8], v1[8], v2[8], gv[8];
+          gnnome::unpack8(
+              *reinterpret_cast<const uint4*>(stg + srow * BN + chunk_at<BN>(srow, ch) * 8), p);
+          gnnome::unpack8(a, v1);
+          gnnome::unpack8(b, v2);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float pb = gnnome::round_to<bf16>(p[k] + bias[k]);
+            gv[k] = gnnome::round_to<bf16>((pb + v1[k]) + v2[k]);
+          }
+          __stcs(reinterpret_cast<uint4*>(gate + static_cast<int64_t>(row) * d + cc),
+                 gnnome::pack8(gv));
+          if (row < n_real) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              m0[k] += gv[k];
+              m1[k] += gv[k] * gv[k];
+            }
+          }
+        }
+      }
+      __syncwarp();  // the next tile's stmatrix overwrites these rows
+      ids = next_ids;
+    }
+
+    // the lanes of one chunk meet; then the eight consumer warps, in order,
+    // in shared memory red[warp][stat][BN] (the staging tiles' space)
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        m0[k] += __shfl_xor_sync(0xffffffffu, m0[k], off);
+        m1[k] += __shfl_xor_sync(0xffffffffu, m1[k], off);
+      }
+    }
+    consumers_sync();  // every consumer warp is done with the staging tiles
+    float* red = reinterpret_cast<float*>(stage_tiles);
+    const int cwarp = warp - 4;
+    if (lr == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        red[(cwarp * 2) * BN + ch * 8 + k] = m0[k];
+        red[(cwarp * 2 + 1) * BN + ch * 8 + k] = m1[k];
+      }
+    }
+    consumers_sync();
+    for (int i = tid - 128; i < 2 * BN; i += 256) {
+      const int stat = i / BN, col = i % BN;
+      float sum = 0.0f;
+      for (int w = 0; w < 8; ++w) sum += red[(w * 2 + stat) * BN + col];
+      if (col0 + col < d)
+        partial[(static_cast<int64_t>(blockIdx.x) * 2 + stat) * d + col0 + col] = sum;
+    }
+  }
+}
+
+// a launch of the BN instance: n_parts walkers of each of the (d / BN)
+// column blocks
+template <int BN>
+cudaError_t launch(const CUtensorMap& map, const bf16* b1h, const bf16* b2h, const bf16* w3,
+                   const bf16* b3, const int* src, const int* dst, bf16* gate,
+                   float* partial, int n_rows, int n_real, int d, int n_parts, int stages,
+                   size_t smem, cudaStream_t s) {
+  cudaError_t err = gnnome::allow_smem(gate_front_bf16_tma_kernel<BN>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_parts, (d + BN - 1) / BN);
+  gate_front_bf16_tma_kernel<BN><<<grid, THREADS, smem, s>>>(map, b1h, b2h, w3, b3, src, dst,
+                                                             gate, partial, n_rows, n_real, d,
+                                                             stages);
+  return cudaGetLastError();
+}
+
+}  // namespace bfh
 
 }  // namespace
 
@@ -883,26 +1304,48 @@ GNNOME_API int gnnome_gate_front_f32(
 }
 
 // The bf16 entry: b1h, b2h, e, w3, b3 and gate bf16; partial (scratch f32
-// [n_parts, 2, d]) and mom f32. n_parts blocks of each 128-column block
-// walk the 64-row tiles. Any d (the W3 slice in K tiles above 512).
-// vec: d % 8 == 0 and the row tensors' bases 16-byte aligned.
+// [n_parts, 2, d]) and mom f32. The launch plan comes from the wrapper
+// (ops/gate_front.py gate_front_bf16_plan): bn > 0 runs the TMA instance with
+// BN = bn and a ring of `stages` K slices (d % 8 == 0 and the row tensors'
+// bases 16-byte aligned), bn = 0 the element-wise instance (any d). Either
+// takes the shared memory of its own layout, and a plan past the card's
+// 232,448 bytes a block is refused. n_parts blocks of each column block walk
+// the 64-row tiles.
 GNNOME_API int gnnome_gate_front_bf16(
     const gnnome::bf16* b1h, const gnnome::bf16* b2h, const gnnome::bf16* e,
     const gnnome::bf16* w3, const gnnome::bf16* b3, const int* src, const int* dst,
     gnnome::bf16* gate, float* partial, float* mom, int64_t n_rows, int64_t n_real, int d,
-    int n_parts, int vec, int device, void* stream) {
+    int n_parts, int bn, int stages, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_parts < 1 || d < 1 || n_rows > (int64_t{1} << 31) - 2 * bf::BM ||
-      bf::smem_bytes(d) > 232448)
+      (bn > 0 && (stages < 2 || d % 8 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bn > 0 ? bfh::smem_bytes(d, bn, stages) : bf::smem_bytes(d);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = static_cast<int>(n_rows);
   const int real = static_cast<int>(n_real < n_rows ? n_real : n_rows);
-  err = vec ? bf::launch<8>(b1h, b2h, e, w3, b3, src, dst, gate, partial, rows, real, d,
-                            n_parts, s)
-            : bf::launch<1>(b1h, b2h, e, w3, b3, src, dst, gate, partial, rows, real, d,
-                            n_parts, s);
+  if (bn > 0) {
+    // the e slices [64 rows][64] bf16, 128-byte swizzle, zeros outside
+    CUtensorMap map = {};
+    err = tensor_map_2d(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, e, sizeof(gnnome::bf16), n_rows,
+                        d, bfh::KS, bfh::TM, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return static_cast<int>(err);
+#define GNNOME_LAUNCH(N)                                                                   \
+  bfh::launch<N>(map, b1h, b2h, w3, b3, src, dst, gate, partial, rows, real, d, n_parts, \
+                 stages, smem, s)
+    switch (bn) {
+      case 32: err = GNNOME_LAUNCH(32); break;
+      case 64: err = GNNOME_LAUNCH(64); break;
+      case 128: err = GNNOME_LAUNCH(128); break;
+      case 256: err = GNNOME_LAUNCH(256); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef GNNOME_LAUNCH
+  } else {
+    err = bf::launch(b1h, b2h, e, w3, b3, src, dst, gate, partial, rows, real, d, n_parts, s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   moments_reduce_kernel<<<(2 * d + 31) / 32, 256, 0, s>>>(partial, mom, n_parts, d);
   return static_cast<int>(cudaGetLastError());

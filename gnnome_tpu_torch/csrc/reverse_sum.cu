@@ -34,15 +34,18 @@ using gnnome::VAL_BY_EDGE;
 using gnnome::VAL_BY_SORTED;
 
 // T: the stored type of e_new and values (float, or bf16 for the bf16
-// entry); the sums are f32
+// entry); the sums are f32. The bf16 entry rounds each summand, σ·v and σ,
+// to bf16 before its f32 sum, as fused_sigma_unsorted_pallas feeds them to
+// its MXU sum in the data dtype (spmm_pallas.py:2358-2360); the f32
+// instance is the unrounded one (ROUND = false), as it was.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(128) sigma_reverse_sum_kernel(
     const T* __restrict__ e_new, const T* __restrict__ values,
     const int* __restrict__ offsets, const int* __restrict__ order,
     const int* __restrict__ dst, float* __restrict__ sums, int64_t n_nodes,
     int d) {
-  gnnome::sigma_sum_rows<T, VEC, true, VAL_BY_EDGE>(e_new, values, offsets, order, dst,
-                                                    sums, n_nodes, d);
+  gnnome::sigma_sum_rows<T, VEC, true, VAL_BY_EDGE, /*ROUND=*/gnnome::is_bf16<T>>(
+      e_new, values, offsets, order, dst, sums, n_nodes, d);
 }
 
 template <typename T, int VEC>

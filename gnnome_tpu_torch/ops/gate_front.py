@@ -17,6 +17,8 @@ endpoint segment sums; the B3 gradients are matrix products.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from gnnome_tpu_torch.core.graph import CSR
@@ -32,7 +34,7 @@ GATE_FRONT = register(Kernel(
     replaces="gnnome_tpu/ops/spmm_pallas.py:2669 gate_front_pallas"))
 GATE_FRONT_BF16 = register(Kernel(
     "gate_front_bf16", "gnnome_gate_front_bf16",
-    [P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32],
+    [P, P, P, P, P, P, P, P, P, P, I64, I64, I32, I32, I32, I32],
     source="gnnome_tpu_torch/csrc/gate_front.cu",
     replaces="gnnome_tpu/ops/spmm_pallas.py:2669 gate_front_pallas", dtype=torch.bfloat16))
 GATE_FRONT_BWD = register(Kernel(
@@ -52,9 +54,68 @@ GATE_FRONT_BWD_BF16 = register(Kernel(
 # kernel; W3 is split into tf32 hi/lo parts, padded to 256-column blocks
 # and K slices of 16 (an even count of them), in scratch the wrapper gives
 _FRONT_ROW_TILE, _FRONT_COLS, _FRONT_K = 128, 256, 16
-# its bf16 entry: 64-edge row tiles, 128-column blocks, two blocks an SM,
-# the W3 slice in shared memory (whole up to d = 512, in K tiles above)
-_BF16_ROW_TILE, _BF16_COLS = 64, 128
+# the shared memory a block may take on the H100 (bytes)
+SMEM_MAX = 232448
+
+
+class GateFrontBf16Plan(NamedTuple):
+    """How the bf16 entry of ``csrc/gate_front.cu`` runs for one call.
+
+    ``bn`` > 0 runs ``bfh::gate_front_bf16_tma_kernel``: the e slices by TMA
+    into a ring of ``stages``, wgmma products on a W3 column slice of ``bn``
+    columns kept in shared memory for the whole walk. ``bn`` = 0 runs
+    ``bf::gate_front_bf16_kernel``: any d, element by element, its W3 slice
+    of 128 columns in K tiles above d = 512. ``grid`` is (row walkers,
+    column blocks); the column blocks of a row tile walk at one pace, so
+    the e slice one of them loads, the others find in the L2. The C entry
+    takes the shared memory of its own layout and refuses a plan past
+    :data:`SMEM_MAX`."""
+    bn: int
+    stages: int
+    grid: Tuple[int, int]
+
+
+# the TMA instance: 64-row tiles, K slices of 64 (one 128-byte swizzle row
+# of bf16), a ring of 4 to 8 of them; BN from 256 down to 32
+_TMA_ROWS, _TMA_K, _TMA_STAGES = 64, 64, (4, 8)
+_TMA_BNS = (256, 128, 64, 32)
+# the element-wise instance: 64-row tiles, 128-column blocks, two blocks an SM
+_EW_ROWS, _EW_COLS = 64, 128
+
+
+def tma_smem(d: int, bn: int, stages: int) -> int:
+    """A block's shared memory in the TMA instance (``bfh::smem_bytes``):
+    alignment slack, the ring and its two barriers a stage, the W3 slice
+    [64·ceil(d/64), bn], two staging tiles [64, bn] and the consumers' two
+    order barriers."""
+    slice_bytes = _TMA_ROWS * _TMA_K * 2
+    return (1024 + stages * (slice_bytes + 16) + -(-d // _TMA_K) * _TMA_K * bn * 2
+            + 2 * _TMA_ROWS * bn * 2 + 16)
+
+
+def gate_front_bf16_plan(d: int, n_rows: int, sms: int, vec: bool) -> GateFrontBf16Plan:
+    """The bf16 gate front's launch plan, from the shape. ``vec``: d % 8 == 0
+    and every row tensor's base 16-byte aligned, which TMA needs. Then the
+    TMA instance takes the widest BN (at most d rounded up to a power of
+    two, at least 32) whose W3 slice fits with a ring of 4 stages, and the
+    deepest ring up to 8 that fits beside it, and one walker a column block
+    per SM, at most one a row tile. Otherwise, or past the widest d BN = 32
+    fits (d > 2944), the element-wise instance, two blocks an SM."""
+    if vec and d % 8 == 0:
+        lo, hi = _TMA_STAGES
+        for bn in _TMA_BNS:
+            if bn > 32 and bn // 2 >= d:
+                continue
+            fits = [s for s in range(lo, hi + 1) if tma_smem(d, bn, s) <= SMEM_MAX]
+            if fits:
+                n_cb = -(-d // bn)
+                parts = max(1, min(sms // n_cb, -(-n_rows // _TMA_ROWS)))
+                return GateFrontBf16Plan(bn, fits[-1], (parts, n_cb))
+    n_cb = -(-d // _EW_COLS)
+    parts = max(1, min(max(1, 2 * sms // n_cb), -(-n_rows // _EW_ROWS)))
+    return GateFrontBf16Plan(0, 0, (parts, n_cb))
+
+
 # csrc/gate_front_bwd.cu: blocks that walk its 64-edge row tiles
 _ROW_TILE = 64
 _MAX_PARTS = 1024
@@ -110,17 +171,15 @@ def gate_front(b1h: torch.Tensor, b2h: torch.Tensor, e: torch.Tensor,
 
 def _gate_front_bf16(b1h, b2h, e, w3, b3, src, dst, n_real: int, sms: int):
     n_rows, d = e.shape
-    # the column blocks of a row tile run at once (two blocks an SM), so the
-    # second reads the e tile from the L2
-    n_cb = -(-d // _BF16_COLS)
-    n_parts = max(1, min(max(1, 2 * sms // n_cb), -(-n_rows // _BF16_ROW_TILE)))
     gate = torch.empty_like(e)
+    plan = gate_front_bf16_plan(d, n_rows, sms, vec_ok(d, b1h, b2h, e, w3, b3, gate))
+    n_parts = plan.grid[0]
     partial = torch.empty((n_parts, 2, d), dtype=torch.float32, device=e.device)
     mom = torch.empty((2, d), dtype=torch.float32, device=e.device)
     GATE_FRONT_BF16(e.device, b1h.data_ptr(), b2h.data_ptr(), e.data_ptr(), w3.data_ptr(),
                     b3.data_ptr(), src.data_ptr(), dst.data_ptr(), gate.data_ptr(),
                     partial.data_ptr(), mom.data_ptr(), n_rows, n_real, d, n_parts,
-                    int(vec_ok(d, b1h, b2h, e, w3, b3, gate)))
+                    plan.bn, plan.stages)
     return gate, mom
 
 

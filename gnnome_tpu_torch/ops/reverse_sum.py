@@ -18,7 +18,8 @@ its TPU band plans exist. The model takes the first on every graph.
 
 Under bf16 the first and its backward have their own entries: ``e_new``,
 the values and the per-edge cotangents are bf16, the sums and ``g_sums``
-f32; the backward rounds the ``g_sums`` rows to bf16 before use (the JAX
+f32; the forward rounds each summand, σ·v and σ, to bf16 before its f32
+sum, as the TPU kernel does (``spmm_pallas.py:2358-2360``); the backward rounds the ``g_sums`` rows to bf16 before use (the JAX
 VJP casts the cotangent to the edge dtype) and each cotangent once, as it
 stores it (``gnnome_tpu/ops/segment.py:647-690``).
 """
@@ -64,10 +65,14 @@ OPP_BWD = register(Kernel(
 
 def sigma_reverse_sum_plain(e_new, values, by_src: CSR, dst):
     n, d = values.shape
-    sigma = torch.sigmoid(e_new.to(torch.float32))
-    stacked = torch.cat([sigma * values[dst].to(torch.float32), sigma], dim=-1)
+    dt, f32 = e_new.dtype, torch.float32
+    sigma = torch.sigmoid(e_new.to(f32))
+    sv = sigma * values[dst].to(f32)
+    if dt != f32:  # the summands rounded to the data dtype, as the TPU kernel
+        sv, sigma = sv.to(dt).to(f32), sigma.to(dt).to(f32)
+    stacked = torch.cat([sv, sigma], dim=-1)
     valid = by_src.key < n
-    sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=values.device)
+    sums = torch.zeros((n, 2 * d), dtype=f32, device=values.device)
     sums.index_add_(0, by_src.key[valid], stacked[valid])
     return sums
 

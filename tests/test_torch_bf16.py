@@ -21,16 +21,19 @@ Tolerances, and why:
     bf16 output rounded from an f32 sum over edges (``d_W3``, the segment
     sums) adds 1e-5·max|ref| for the sum's f32 rounding, as the f32 tests do.
   * f32 outputs (the aggregation sums, ``d_affine``): rtol = atol = 1e-5, as
-    in f32, against ``xla``: the summands are the same f32 values, only
-    their order differs. JAX's Pallas kernels round each summand σ·v and σ
-    to bf16 before their f32 sum (``spmm_pallas.py:2358-2360, 2953-2956``),
-    where its xla composition and the port sum f32 products
-    (``segment.py:245-246``); and its gate epilog takes σ of the f32 e_new
-    where the port and the xla composition take it of the stored bf16 e_new
-    (``segment.py:786-787``). Against ``pallas_interpret`` the sums are held
-    to the sum over their edges of those two roundings' effects: half a bf16
-    ulp of each summand (≤ 2⁻⁸ of it) and σ(1 − σ)·|v| times half an ulp of
-    e_new, plus 1e-5.
+    in f32, against the backend that rounds as the port does: the summands
+    are the same values, only their order differs. JAX's Pallas kernels
+    round each summand σ·v and σ to bf16 before their f32 sum
+    (``spmm_pallas.py:2358-2360, 2953-2956``), where its xla composition
+    sums f32 products (``segment.py:245-246``); the port's row 3 rounds as
+    the Pallas kernel does and is held strictly to ``pallas_interpret``,
+    its gate epilog (row 2) sums f32 products as the xla composition does
+    and is held strictly to ``xla``. The Pallas gate epilog also takes σ
+    of the f32 e_new where the port and the xla composition take it of the
+    stored bf16 e_new (``segment.py:786-787``). Against the other backend
+    the sums are held to the sum over their edges of those two roundings'
+    effects: half a bf16 ulp of each summand (≤ 2⁻⁸ of it) and σ(1 − σ)·|v|
+    times half an ulp of e_new, plus 1e-5.
   * the gate (row 1): the port rounds where the TPU kernel rounds (proj to
     bf16, ``+ b3`` in bf16, the endpoint rows added in f32,
     ``spmm_pallas.py:2619-2645``). JAX's xla composition rounds
@@ -343,8 +346,10 @@ def test_reverse_sum_bf16_matches_jax(case):
     assert sums.dtype == torch.float32
     jsums = _fused_sigma_reverse_unsorted(jb(values), jb(e_new), jg.by_src.key_canonical,
                                           jg.dst, jg.by_src, jg.by_dst, n, backend)
+    # the port rounds each summand to bf16, as interpreted Pallas (the TPU
+    # kernel) does; JAX's xla composition sums them unrounded
     bound = summand_bound(tb(e_new), tb(values)[tg.dst], tg.by_src.key, n)
-    assert_sums_close(sums, jsums, backend, bound, name="sums")
+    assert_sums_close(sums, jsums, backend, bound, name="sums", strict="pallas_interpret")
 
     g = rng.standard_normal((n, 2 * D)).astype(np.float32)
     sums.backward(torch.from_numpy(g))

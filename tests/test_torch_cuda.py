@@ -32,7 +32,7 @@ from gnnome_tpu_torch.ops.cuda_lib import KERNELS
 from gnnome_tpu_torch.ops.gate_epilog import (
     epilog_bwd, epilog_bwd_plain, gate_sigma_gather, gate_sigma_gather_plain)
 from gnnome_tpu_torch.ops.gate_front import (
-    gate_front, gate_front_bwd, gate_front_bwd_plain, gate_front_plain)
+    _gate_front_bf16, gate_front, gate_front_bwd, gate_front_bwd_plain, gate_front_plain)
 from gnnome_tpu_torch.ops.reverse_sum import (
     opp_bwd, opp_bwd_plain, rev_bwd, rev_bwd_plain, sigma_opposite, sigma_opposite_plain,
     sigma_reverse_sum, sigma_reverse_sum_plain)
@@ -482,7 +482,7 @@ def _gate_front_bf16_case(cuda, rng, n, n_rows, n_real, d, src, dst):
     real = g[:n_real].double()
     own = torch.stack([real.sum(0), (real * real).sum(0)]).float()
     torch.testing.assert_close(mom / n_real, own / n_real, **TOL)
-    return gate, ref_mom
+    return gate, mom, args
 
 
 @pytest.mark.parametrize("d", [30, 64, 256])
@@ -494,7 +494,7 @@ def test_bf16_forward_kernels(cuda, d):
         with _launched("take_rows_bf16"):
             out = take_rows(table, ids)
         assert torch.equal(out, take_rows_plain(table, ids))
-    gate, _ = _gate_front_bf16_case(cuda, rng, n, e_pad, g.n_edges, d, g.src, g.dst)
+    gate = _gate_front_bf16_case(cuda, rng, n, e_pad, g.n_edges, d, g.src, g.dst)[0]
     affine = torch.stack([
         torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)),
         torch.from_numpy(rng.standard_normal(d).astype(np.float32))]).to(cuda)
@@ -512,18 +512,34 @@ def test_bf16_forward_kernels(cuda, d):
 
 @pytest.mark.parametrize("n_rows,n_real,d", [(1037, 300, 256), (1037, 1037, 512),
                                              (1037, 300, 30), (1037, 300, 640),
-                                             (1037, 1037, 1030)])
-def test_gate_front_bf16_kernel_ragged(cuda, n_rows, n_real, d):
-    """A ragged last 64-row tile, real rows below the padded count, d = 512
-    (the W3 slice at its largest kept whole, one block an SM) and widths
-    above it, whose W3 slice comes in K tiles of 256 rows (640: two whole
-    tiles and a half one; 1030: d % 8 != 0, element loads, a last tile of
-    16 rows)."""
+                                             (1037, 1037, 1030), (1037, 300, 8),
+                                             (1000, 1000, 64), (1037, 700, 136),
+                                             (1037, 300, 384), (70, 70, 1024)])
+@pytest.mark.parametrize("ids", ["random", "hub"])
+def test_gate_front_bf16_kernel_ragged(cuda, n_rows, n_real, d, ids):
+    """A ragged last 64-row tile and real rows below the padded count, at
+    widths that take every column-block width of the TMA instance (8 at
+    BN = 32, 64 at 64, 136 and 256 at 256, 384 to 640 at 128, 1024 at 64:
+    a W3 slice kept resident across 16 K slices) and the element-wise
+    instance (30 and 1030: d % 8 != 0; its W3 slice in K tiles above 512);
+    endpoint ids at random or on a hub (half of the rows on node 0). Two
+    calls give the same bits, and the gate keeps its bits under other grids
+    (the moments, summed over other partial rows, within 1e-5)."""
     rng = np.random.default_rng(25)
     n = 300
-    ids = [torch.from_numpy(rng.integers(0, n, n_rows).astype(np.int32)).to(cuda)
-           for _ in range(2)]
-    _gate_front_bf16_case(cuda, rng, n, n_rows, n_real, d, *ids)
+    pair = [rng.integers(0, n, n_rows) for _ in range(2)]
+    if ids == "hub":
+        for x in pair:
+            x[rng.random(n_rows) < 0.5] = 0
+    pair = [torch.from_numpy(x.astype(np.int32)).to(cuda) for x in pair]
+    gate, mom, args = _gate_front_bf16_case(cuda, rng, n, n_rows, n_real, d, *pair)
+    again, mom_again = gate_front(*args)
+    assert torch.equal(again.view(torch.int16), gate.view(torch.int16))
+    assert torch.equal(mom_again, mom)
+    for sms in (3, 9):
+        other, mom_other = _gate_front_bf16(*args, sms)
+        assert torch.equal(other.view(torch.int16), gate.view(torch.int16)), sms
+        torch.testing.assert_close(mom_other / n_real, mom / n_real, **TOL)
 
 
 @pytest.mark.parametrize("d", [30, 64, 256])
