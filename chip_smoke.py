@@ -99,13 +99,29 @@ stopped); any failure raises and exits non-zero:
              training epoch under the default ``Config`` in bf16 (ms per
              piece step).
 
+11. decode — ``greedy.get_contigs`` at chromosome scale: the distinct
+             edges of both bench graphs (local and cross-locus) with
+             seeded read and prefix lengths, scored by the shipped weights
+             in f32; the host ``"batched"`` engine and the ``"device"``
+             engine (``csrc/walk.cu``, one launch per leg) with the
+             default ``DecodeConfig`` (50 paths), their seconds, the walk
+             kernel's ms (CUDA events) and its steps per µs against one
+             dependent global read a step (a one-thread pointer chase),
+             contigs and the longest walk; the two engines' contigs must be
+             equal, walk for walk. Before that the kernel against
+             ``walk_batch_plain`` on the card (walks, lengths, base counts
+             and visited rows equal) on phase 5's genome graph and on a
+             bench graph with 40-neighbour hubs (K > 32), and
+             ``pagerank_pe_torch`` twice alike bit for bit.
+
 The line before last is the kernel table as JSON, the bf16 entries after
-the f32 ones (``launches``: one training step, under ``remat="layer"``,
+the f32 ones, the walk kernel last (``launches``: one training step, under ``remat="layer"``,
 of the first of the BatchNorm, LayerNorm, wide and LayerNorm + wide steps,
 in f32 and then in bf16, that runs the kernel; every
 count in ``launches_by_path``, the ClusterGCN piece step and phases 7
 and 9 as a whole among them; rows 12-13 are not on a model path, and say
-so), the one before that the card's name and power limit; the last line is
+so; the walk kernel's: both decodes of phase 11, and it is not a TPU
+kernel), the one before that the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the package beside it, the script prints
 no result and exits non-zero.
@@ -1724,6 +1740,316 @@ def phase_cluster_bf16(torch, seed: int, device="cuda") -> dict:
     return steps.first
 
 
+# ---------------------------------------------------------------------------
+# phase 11: decode at chromosome scale, host engine against the walk kernel
+# ---------------------------------------------------------------------------
+CHASE_L2_INTS = 1 << 20  # 4 MB: past the L1, inside the 50 MB L2
+CHASE_HBM_INTS = 1 << 26  # 256 MB: past the L2
+CHASE_HOPS = 200_000
+DECODE_HUB = 40  # successors of one node, predecessors of another: K = 40 > 32
+
+
+def decode_problem(seed: int, frac_long: float, n_nodes: int, n_edges: int) -> dict:
+    """The decode arguments of a bench graph: the distinct (src, dst) pairs
+    of ``bench_edges`` in first-occurrence order, their successor and
+    predecessor lists and edge ids, read lengths of 10-30 kb and per edge a
+    prefix length below its source read's length, from ``seed``."""
+    import numpy as np
+
+    from gnnome_tpu_torch.data.synthetic import bench_edges
+
+    src, dst = bench_edges(n_nodes, n_edges, seed, frac_long)
+    _, first = np.unique(src.astype(np.int64) * n_nodes + dst, return_index=True)
+    first.sort()
+    src, dst = src[first].astype(np.int64), dst[first].astype(np.int64)
+    return dict(src=src, dst=dst, **adjacency_lists(src, dst, n_nodes),
+                **read_lengths(np.random.default_rng(seed), src, n_nodes))
+
+
+def adjacency_lists(src, dst, n_nodes: int) -> dict:
+    su, du = src.tolist(), dst.tolist()
+    succs = {i: [] for i in range(n_nodes)}
+    preds = {i: [] for i in range(n_nodes)}
+    for u, v in zip(su, du):
+        succs[u].append(v)
+        preds[v].append(u)
+    return dict(succs=succs, preds=preds, edges=dict(zip(zip(su, du), range(len(su)))))
+
+
+def read_lengths(rng, src, n_nodes: int) -> dict:
+    read_length = rng.integers(10_000, 30_000, n_nodes)
+    return dict(read_length=read_length, prefix_length=rng.integers(1_000, read_length[src]))
+
+
+def decode_args(p: dict, scores) -> tuple:
+    return (p["src"], p["dst"], scores, p["succs"], p["preds"], p["edges"],
+            p["prefix_length"], p["read_length"])
+
+
+def read_latency_ns(torch, n_ints: int, seed: int) -> float:
+    """ns of one dependent global read: ``csrc/walk.cu``'s one-thread
+    pointer chase over a random cycle of ``n_ints`` int32 (CUDA events)."""
+    from gnnome_tpu_torch.ops.cuda_lib import I32, I64, P, Kernel
+
+    chase = Kernel("pointer_chase", "gnnome_pointer_chase", [P, I64, I32, P],
+                   source="gnnome_tpu_torch/csrc/walk.cu", replaces="")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    perm = torch.randperm(n_ints, generator=gen, device="cuda", dtype=torch.int64)
+    nxt = torch.empty(n_ints, dtype=torch.int32, device="cuda")
+    nxt[perm] = perm.roll(-1).to(torch.int32)  # one cycle through every slot
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    ms = time_ms(torch, lambda: chase(nxt.device, nxt.data_ptr(), CHASE_HOPS,
+                                      int(perm[0]), out.data_ptr()), iters=3, warmup=1)
+    return ms * 1e6 / CHASE_HOPS
+
+
+class WalkProbe:
+    """Wraps the decode's walk while it runs: CUDA events around each launch
+    of the walk kernel (the wrapper's checks outside them), each leg's
+    longest walk (kept on the card until the end) and the first leg's
+    inputs."""
+
+    def __init__(self, torch):
+        from gnnome_tpu_torch.decode import device_walker
+
+        self.torch, self.module = torch, device_walker
+        self.walk_batch, self.kernel = device_walker.walk_batch, device_walker.WALK
+        self.events, self.longest, self.first = [], [], None
+        device_walker.walk_batch, device_walker.WALK = self.walk, self
+
+    def __call__(self, device, *args):  # the kernel's launch
+        start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        self.kernel(device, *args)
+        end.record()
+        self.events.append((start, end))
+
+    def walk(self, tables, starts, vg, frozen, min_score, max_steps, out=None):
+        if self.first is None:
+            self.first = (tables, starts.clone(), vg.clone(),
+                          None if frozen is None else frozen.clone(), min_score, max_steps)
+        res = self.walk_batch(tables, starts, vg, frozen, min_score, max_steps, out=out)
+        self.longest.append(res.lengths.max())
+        return res
+
+    def close(self) -> tuple[float, int]:
+        """(kernel ms, Σ of each leg's longest walk); unwraps."""
+        self.module.walk_batch, self.module.WALK = self.walk_batch, self.kernel
+        self.torch.cuda.synchronize()
+        return (sum(s.elapsed_time(e) for s, e in self.events),
+                int(sum(int(x) for x in self.longest)))
+
+
+def seed_draw_ms(p: dict, scores, nb_paths: int, seed: int, reps: int = 5) -> float:
+    """ms of the O(E) host work that opens every iteration of the decode's
+    outer loop (both engines): the alive edges of the remaining graph, their
+    probabilities and the draw of ``nb_paths`` seed edges; median of
+    ``reps`` on an empty visited set."""
+    import numpy as np
+
+    from gnnome_tpu_torch.decode.greedy import sample_edges
+
+    src, dst = p["src"], p["dst"]
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / (1.0 + np.exp(-np.asarray(scores, dtype=np.float64)))
+    not_self, vg = src != dst, np.zeros(len(p["read_length"]) + 1, np.uint8)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        keep = vg == 0
+        alive_ids = np.nonzero(not_self & keep[src] & keep[dst])[0]
+        alive_ids[sample_edges(probs[alive_ids], nb_paths, rng)]
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def check_walk_kernel(torch, p, scores, label: str, seed: int, device="cuda") -> int:
+    """The walk kernel against ``walk_batch_plain`` on the card: a forward
+    leg from every node against a random global visited set, then a
+    backward leg frozen on its marks, without a floor and with one; walks,
+    lengths, base counts and visited rows equal. Returns the table width K."""
+    import numpy as np
+
+    from gnnome_tpu_torch.decode.device_walker import (
+        NO_FLOOR, PaddedAdjacency, walk_batch, walk_batch_plain)
+
+    n = len(p["read_length"])
+    n_pad, max_steps = n + (n & 1), n + 2
+    rng = np.random.default_rng(seed)
+    vg = torch.from_numpy((rng.random(n_pad) < 0.1).astype(np.uint8)).to(device)
+    starts = torch.arange(n, dtype=torch.int32, device=device)
+    k = 0
+    for floor in (NO_FLOOR, 0.0):
+        frozen = None
+        for reverse in (False, True):
+            tables = PaddedAdjacency(p["preds"] if reverse else p["succs"], p["edges"],
+                                     scores, p["prefix_length"], n_pad,
+                                     reverse=reverse).tensors(device)
+            got = walk_batch(tables, starts, vg, frozen, floor, max_steps)
+            ref = walk_batch_plain(tables, starts, vg, frozen, floor, max_steps)
+            for name, a, b in zip(got._fields, got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"walk kernel [{label}, floor {floor}, "
+                                         f"{'backward' if reverse else 'forward'}]: {name} "
+                                         "differs from walk_batch_plain")
+            frozen, k = got.visited, max(k, tables.nbr.shape[1])
+            log(f"  walk kernel = walk_batch_plain [{label}, {n} walks, K = "
+                f"{tables.nbr.shape[1]}, {'backward' if reverse else 'forward'}, floor "
+                f"{floor}]: longest walk {int(got.lengths.max())}, walks, lengths, bp and "
+                "visited rows equal")
+    return k
+
+
+def hub_decode_problem(seed: int) -> dict:
+    """A bench graph of 2,000 nodes with one node of ``DECODE_HUB``
+    successors and one of as many predecessors (K > 32)."""
+    import numpy as np
+
+    p = decode_problem(seed, 0.0, 2_000, 12_000)
+    src, dst = p["src"].tolist(), p["dst"].tolist()
+    have = set(zip(src, dst))
+    extra = [(0, v) for v in range(100, 100 + 2 * DECODE_HUB, 2)] + \
+        [(u, 2) for u in range(300, 300 + 2 * DECODE_HUB, 2)]
+    extra = [e for e in extra if e not in have]
+    src = np.array(src + [u for u, _ in extra])
+    dst = np.array(dst + [v for _, v in extra])
+    return dict(src=src, dst=dst, **adjacency_lists(src, dst, 2_000),
+                **read_lengths(np.random.default_rng(seed), src, 2_000))
+
+
+def phase_decode(torch, data: Path, params, cfg, seed: int, device="cuda") -> dict:
+    """Decode at chromosome scale (see the module docstring); the walk
+    kernel's row of the kernel table."""
+    import numpy as np
+
+    from gnnome_tpu_torch.core.graph import build_graph, extract_edge_values
+    from gnnome_tpu_torch.data.dataset import AssemblyGraphDataset, get_info
+    from gnnome_tpu_torch.data.pe import pagerank_pe_np, pagerank_pe_torch
+    from gnnome_tpu_torch.data.synthetic import bench_features
+    from gnnome_tpu_torch.decode import greedy
+    from gnnome_tpu_torch.decode.device_walker import WALK, walk_batch, walk_batch_plain
+    from gnnome_tpu_torch.decode.inference import score_graph
+
+    latency = {name: read_latency_ns(torch, n_ints, seed)
+               for name, n_ints in (("l2", CHASE_L2_INTS), ("hbm", CHASE_HBM_INTS))}
+    log(f"  one dependent global read (pointer chase, {CHASE_HOPS} hops): "
+        f"{latency['l2']:.1f} ns over {CHASE_L2_INTS * 4 >> 20} MB (L2), "
+        f"{latency['hbm']:.1f} ns over {CHASE_HBM_INTS * 4 >> 20} MB (HBM)")
+
+    # the kernel against its plain version on small graphs
+    (_, sample), = AssemblyGraphDataset(str(data), cfg.model.nb_pos_enc, device="cpu")
+    genome = dict(src=np.asarray(sample.src), dst=np.asarray(sample.dst),
+                  succs=get_info(0, str(data), "succ"), preds=get_info(0, str(data), "pred"),
+                  edges=get_info(0, str(data), "edges"),
+                  prefix_length=np.asarray(sample.prefix_length),
+                  read_length=np.asarray(sample.read_length))
+    rng = np.random.default_rng(seed)
+    check_walk_kernel(torch, genome, rng.standard_normal(len(genome["src"])).astype(np.float32),
+                      "phase 5's genome graph", seed, device)
+    hub = hub_decode_problem(seed)
+    k = check_walk_kernel(torch, hub, rng.standard_normal(len(hub["src"])).astype(np.float32),
+                          f"bench graph with {DECODE_HUB}-neighbour hubs", seed, device)
+    if k <= 32:
+        raise AssertionError(f"the hub graph's tables are {k} wide; more than 32 expected")
+
+    nb_paths, len_threshold = cfg.decode.num_decoding_paths, cfg.decode.len_threshold
+    runs, launches, first = {}, 0, None
+    for label, frac_long in (("local", 0.0), ("cross-locus", FRAC_LONG)):
+        t0 = time.perf_counter()
+        p = decode_problem(seed, frac_long, N_NODES, N_EDGES)
+        graph = build_graph(p["src"], p["dst"], N_NODES, device=device)
+        e_feat, pe = bench_features(graph, seed, cfg.model.nb_pos_enc)
+        logits = score_graph(params, graph, e_feat, pe)
+        scores = extract_edge_values(graph, logits).astype(np.float32)
+        log(f"  {label}: {N_NODES} nodes, {len(p['src'])} distinct edges, scored with "
+            f"{WEIGHTS.name} in f32; set-up {time.perf_counter() - t0:.2f} s")
+        if label == "local":
+            args = (graph.src, graph.dst, graph.edge_mask, graph.n_nodes_padded,
+                    cfg.model.nb_pos_enc, graph.n_nodes)
+            got = pagerank_pe_torch(*args)
+            if not torch.equal(got, pagerank_pe_torch(*args)):
+                raise AssertionError("pagerank_pe_torch: two calls gave other bits")
+            src_np, dst_np = graph.src[: graph.n_edges].cpu().numpy(), \
+                graph.dst[: graph.n_edges].cpu().numpy()
+            err = check_close("pagerank_pe_torch", torch, got[: graph.n_nodes].cpu(),
+                              torch.from_numpy(pagerank_pe_np(src_np, dst_np, graph.n_nodes,
+                                                              cfg.model.nb_pos_enc)), 1e-4, 0.0)
+            log(f"  pagerank_pe_torch: two calls alike bit for bit; against pagerank_pe_np "
+                f"(f64) max abs err {err:.3e} (tol rtol=1e-4)")
+        del graph, e_feat, pe, logits
+        torch.cuda.empty_cache()
+        kw = dict(nb_paths=nb_paths, len_threshold=len_threshold, seed=seed, device=device)
+        t0 = time.perf_counter()
+        host = greedy.get_contigs(*decode_args(p, scores), engine="batched", **kw)
+        host_s = time.perf_counter() - t0
+        reset_launches()
+        probe = WalkProbe(torch)
+        t0 = time.perf_counter()
+        try:
+            dev = greedy.get_contigs(*decode_args(p, scores), engine="device", **kw)
+            torch.cuda.synchronize()
+        finally:
+            dev_s = time.perf_counter() - t0
+            kernel_ms, steps = probe.close()
+        n_launch = read_launches()["walk"]
+        if n_launch != len(probe.longest) or n_launch == 0:
+            raise AssertionError(f"walk: {n_launch} launches counted, "
+                                 f"{len(probe.longest)} legs walked")
+        launches += n_launch
+        if dev != host:
+            at = next((i for i, (a, b) in enumerate(zip(dev, host)) if a != b),
+                      min(len(dev), len(host)))
+            raise AssertionError(f"{label}: the device engine's contigs differ from the host "
+                                 f"engine's from contig {at} ({len(dev)} against {len(host)})")
+        longest = max(map(len, host), default=0)
+        draw_ms = seed_draw_ms(p, scores, nb_paths, seed)
+        rate = steps / (kernel_ms * 1e3) if kernel_ms else float("nan")
+        bound_rate = 1e3 / latency["l2"]
+        log(f"  {label}: host engine ('batched') {host_s:.3f} s; device engine {dev_s:.3f} s "
+            f"(walk kernel {kernel_ms:.3f} ms in {n_launch} launches, host outer loop and "
+            f"copies {dev_s - kernel_ms / 1e3:.3f} s); {len(host)} contigs, longest walk "
+            f"{longest} nodes; walks equal; kernel {rate:.4f} steps/us along each launch's "
+            f"longest leg (Σ {steps}) against {bound_rate:.4f} at one L2 read a step; an "
+            f"iteration's O(E) seed draw on the host {draw_ms:.3f} ms")
+        runs[label] = dict(host_s=host_s, device_s=dev_s, kernel_ms=kernel_ms,
+                           host_loop_s=dev_s - kernel_ms / 1e3, launches=n_launch,
+                           contigs=len(host), longest_walk=longest, steps=steps,
+                           steps_per_us=rate, bound_steps_per_us=bound_rate,
+                           seed_draw_ms=draw_ms)
+        if first is None:
+            first = probe.first
+        del p, scores, host, dev
+
+    # the kernel row: the local graph's first leg (its longest walks)
+    tables, starts, vg, frozen, floor, max_steps = first
+    got = walk_batch(tables, starts, vg, frozen, floor, max_steps)
+    plain_start, plain_end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    plain_start.record()
+    ref = walk_batch_plain(tables, starts, vg, frozen, floor, max_steps)
+    plain_end.record()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError("walk kernel: the first leg differs from walk_batch_plain")
+    ms = time_ms(torch, lambda: walk_batch(tables, starts, vg, frozen, floor, max_steps),
+                 iters=5, warmup=1)
+    leg = int(got.lengths.max())
+    bound_ms = leg * latency["l2"] * 1e-6
+    log(f"  walk [local, first leg, {starts.shape[0]} walks, longest {leg} steps]: "
+        f"max_abs_err=0 (exact) ms={ms:.4f} plain_ms={plain_start.elapsed_time(plain_end):.4f} "
+        f"library_ms=null bound_ms={bound_ms:.4f} ({leg} dependent reads of "
+        f"{latency['l2']:.1f} ns)")
+    return dict(name=WALK.name, route="cuda", source=WALK.source, replaces=WALK.replaces,
+                launches=launches, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_start.elapsed_time(plain_end), bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None,
+                note=("not a TPU kernel: the device walk of decode (engine='device'); "
+                      "launches: both graphs' decodes; times: the local graph's first leg; "
+                      "bound: its longest walk's steps, each one dependent global read "
+                      "(one-thread pointer chase, L2-resident), not bytes over the memory "
+                      "rate"),
+                read_latency_ns=latency, decode=runs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1859,6 +2185,12 @@ def main() -> int:
     bf16_rows, bf16_paths = phase_bf16(torch, args.seed, f32_losses)
     kernels += bf16_rows
 
+    log("phase 11: decode at chromosome scale, the host engine against the walk kernel")
+    with torch.inference_mode():
+        walk_row = phase_decode(torch, data, load_model(str(WEIGHTS), cfg, "cuda"), cfg,
+                                args.seed)
+    torch.cuda.empty_cache()
+
     # the kernel table's launch counts: one full-scale step of the first
     # training path that runs the kernel; every path's count beside it
     paths = {**scoring, **{f"train_step_{v}_remat_{r}": c for (v, r), c in training.items()},
@@ -1874,6 +2206,8 @@ def main() -> int:
         if not row["on_path"]:
             row["note"] = ("the JAX package's route only where TPU band plans exist; "
                            "the model takes sigma_reverse_sum on every graph")
+
+    kernels.append(walk_row)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card_name_and_power())

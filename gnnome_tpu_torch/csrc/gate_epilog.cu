@@ -23,13 +23,12 @@
 // (pregathered). The arithmetic (one exp per element) is far below the
 // line.
 //
-// bf16 rounding: each entry rounds where its TPU kernel rounds. e_new is
-// computed in f32 and stored rounded to bf16. gate_sigma_aggregate
-// (_fused_gate_kernel, spmm_pallas.py:1395-1399) takes sigma of the
-// unrounded f32 e_new and rounds each summand sigma * v and sigma to bf16
-// before its f32 sum; gate_sigma_gather takes sigma of the rounded e_new
-// and sums the f32 summands, as the JAX composition does (its bf16 entry's
-// contract, held by tests/test_torch_bf16.py).
+// bf16 rounding: both entries round where their TPU kernels round
+// (fused_gate_sigma_gather_pallas, spmm_pallas.py:2951-2956;
+// _fused_gate_kernel, :1395-1399). e_new is computed in f32 and stored
+// rounded to bf16; sigma is taken of the unrounded f32 e_new, and each
+// summand sigma * v and sigma is rounded to bf16 before its f32 sum
+// (tests/test_torch_gather_round.py, tests/test_torch_bf16.py).
 //
 // Design: one warp per destination row. Canonical order is dst-sorted, so
 // the row's edges are the contiguous range offsets[v]:offsets[v+1]; the
@@ -45,11 +44,9 @@ namespace {
 
 // GATHER: the value row of edge k is values[src[k]], else vals[k]. T: the
 // stored type of gate, e_in, values and e_new (float, or bf16 for the bf16
-// entries: e_new is rounded as it is stored). The gather form takes σ of
-// the rounded e_new, as the JAX composition takes it of the bf16 e_new; the
-// pregathered form rounds where fused_gate_sigma_aggregate_pallas does: σ
-// of the f32 e_new, each summand rounded to T (for T = float both are the
-// same arithmetic).
+// entries: e_new is rounded as it is stored). Both forms round where the
+// TPU kernels do: σ of the f32 e_new, each summand rounded to T (for
+// T = float the rounding is the identity).
 template <typename T, int VEC, bool GATHER>
 __device__ __forceinline__ void gate_epilog_rows(
     const T* __restrict__ gate, const T* __restrict__ e_in,
@@ -79,15 +76,9 @@ __device__ __forceinline__ void gate_epilog_rows(
         for (int q = 0; q < VEC; ++q) {
           const float e32 = fmaxf(gnnome::bn_affine(g[q], sc[q], bi[q]), 0.0f) + x[q];
           en[q] = gnnome::round_to<T>(e32);
-          if constexpr (GATHER) {
-            const float sg = gnnome::sigmoid(en[q]);
-            acc1[q] += sg * val[q];
-            acc2[q] += sg;
-          } else {
-            const float sg = gnnome::sigmoid(e32);
-            acc1[q] += gnnome::round_to<T>(sg * val[q]);
-            acc2[q] += gnnome::round_to<T>(sg);
-          }
+          const float sg = gnnome::sigmoid(e32);
+          acc1[q] += gnnome::round_to<T>(sg * val[q]);
+          acc2[q] += gnnome::round_to<T>(sg);
         }
         gnnome::store_vec<VEC>(e_new + k * d + c, en);
       }

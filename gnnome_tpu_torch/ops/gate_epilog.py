@@ -14,11 +14,11 @@ from ``by_dst.key``), then, with ``src``, the by_src segment sum.
 
 Under bf16 (``gnnome_tpu/ops/segment.py:769-790, 804-850, 1040-1085``):
 the gate, ``e_in``, the values and ``e_new`` are bf16, the affine and the
-sums f32; ``e_new`` is computed in f32 and rounded to bf16. The gather
-form takes σ of the rounded value; the pregathered form rounds where the
-TPU kernel rounds (``gnnome_tpu/ops/spmm_pallas.py:1395-1399``): σ of the
-f32 ``e_new``, each summand ``σ·v`` and ``σ`` rounded to bf16 before its
-f32 sum (the xla composition takes σ of the rounded ``e_new``). In the
+sums f32; ``e_new`` is computed in f32 and rounded to bf16. Both forms
+round where their TPU kernels round (``gnnome_tpu/ops/spmm_pallas.py:2951-2956``
+and ``:1395-1399``): σ of the f32 ``e_new``, each summand ``σ·v`` and ``σ``
+rounded to bf16 before its f32 sum (the xla compositions take σ of the
+rounded ``e_new`` and sum the f32 products). In the
 backward the ``g_sums`` rows are rounded to bf16 before use (the JAX VJP
 casts the cotangent to the edge dtype), the [E, D] cotangents are computed
 in f32 and rounded once, and ``d_affine`` stays f32; the pregathered form
@@ -94,10 +94,13 @@ def _value_rows(values, src):
 
 def recomputes_e_new(dtype: torch.dtype, src) -> bool:
     """Whether :func:`epilog_bwd` takes ``e_in`` in place of ``e_new``:
-    the bf16 pregathered form (the VJP of ``gate_sigma_aggregate``), whose
-    forward took σ of the f32 ``e_new``, recomputes it from ``e_in``, as
-    JAX's ``_fused_gate_bwd`` does. Every other form reads the saved
-    ``e_new`` (in f32 the two are the same bits)."""
+    the bf16 pregathered form (the VJP of ``gate_sigma_aggregate``)
+    recomputes the f32 ``e_new`` from ``e_in``, as JAX's ``_fused_gate_bwd``
+    does. Every other form reads the saved ``e_new`` (in f32 the two are the
+    same bits): the bf16 gather form's VJP takes σ of the saved, rounded
+    ``e_new``, as JAX's ``_fused_gate_gather_bwd`` does
+    (``gnnome_tpu/ops/segment.py:804-840``), though its forward took σ of
+    the f32 one."""
     return src is None and dtype == torch.bfloat16
 
 
@@ -107,13 +110,10 @@ def gate_sigma_gather_plain(gate, e_in, values, affine, by_dst: CSR, src=None):
     pre = gate.to(f32) * affine[0] + affine[1]
     e32 = torch.relu(pre) + e_in.to(f32)
     e_new = e32.to(dt)
-    if src is None:  # the TPU kernel's σ of the f32 e_new, summands rounded
-        sigma = torch.sigmoid(e32)
-        sv = (sigma * values.to(f32)).to(dt).to(f32)
-        sigma = sigma.to(dt).to(f32)
-    else:
-        sigma = torch.sigmoid(e_new.to(f32))
-        sv = sigma * values[src].to(f32)
+    # the TPU kernels' σ of the f32 e_new, each summand rounded to the dtype
+    sigma = torch.sigmoid(e32)
+    sv = (sigma * _value_rows(values, src).to(f32)).to(dt).to(f32)
+    sigma = sigma.to(dt).to(f32)
     stacked = torch.cat([sv, sigma], dim=-1)
     valid = by_dst.key < n
     sums = torch.zeros((n, 2 * d), dtype=torch.float32, device=values.device)

@@ -4,7 +4,7 @@ on the card.
 
     python3 scripts/torch_bench_walks.py [--root DIR] [--seed N] [--shapes ...]
                                          [--parts walks fronts] [--widths ...]
-                                         [--dtypes ...] [--cluster]
+                                         [--dtypes ...] [--steps] [--cluster]
 
 ``walks``: ``chip_smoke.py``'s phase-2 walk measurements (``phase_walks``:
 the seven entries that walk edges, ``epilog_bwd`` and
@@ -16,13 +16,15 @@ and ``gate_front_bf16`` at each of ``--widths`` (default 256, 512, 640;
 each checked as ``chip_smoke.py`` checks it and timed beside its bound, its
 plain version and ``torch.addmm(b3, e, W3)`` in the same dtype (the product
 alone, a yardstick the port never calls); with bf16, also
-``sigma_reverse_sum_bf16`` at D = 256 as ``chip_smoke.py`` phase 10 times
-it. Both run on
+``sigma_reverse_sum_bf16`` and ``gate_sigma_gather_bf16`` at D = 256 as
+``chip_smoke.py`` phase 10 times them. Both run on
 the local 150k / 1M bench graph, the padded ClusterGCN piece shape and the
 hub graph (the walks only), with the ``gnnome_tpu_torch`` package found
 under ``--root`` (default: this checkout). Pointing ``--root`` at an unpacked copy of another
 commit (``git archive``) times that commit's kernels with this checkout's
 shapes and byte counts, so two versions are compared in one call, in turns.
+``--steps`` then times ``chip_smoke.py``'s phase-4 step of the BatchNorm
+model under ``remat="layer"`` on the local graph in each of ``--dtypes``.
 ``--cluster`` then runs ``chip_smoke.py``'s phase 7 (two ClusterGCN epochs
 and a validation pass under the default ``Config``) and its bf16 ClusterGCN
 epoch with that package, after building its ``native/`` library. The last line is one JSON object:
@@ -61,6 +63,36 @@ def time_reverse_sum_bf16(torch, cs, graph, seed: int, label: str) -> dict:
            f"plain_ms={m['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}, "
            f"{b_ms / m['ms']:.0%} of it)")
     return {"sigma_reverse_sum_bf16[256]": m}
+
+
+def time_gate_sigma_gather_bf16(torch, cs, graph, seed: int, label: str) -> dict:
+    """``gate_sigma_gather_bf16`` (row 2's bf16 entry) at D = 256 on
+    ``graph``, on seeded inputs: checked against its plain version as
+    ``chip_smoke.py`` phase 10 checks it, then timed beside its byte bound."""
+    from gnnome_tpu_torch.ops.gate_epilog import gate_sigma_gather, gate_sigma_gather_plain
+
+    dev, d = graph.device, 256
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, e = graph.n_nodes_padded, graph.n_edges_padded
+    u_src = int(torch.unique(graph.src).numel())
+    gate, e_in, values = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                          for shape in ((e, d), (e, d), (n, d)))
+    affine = torch.stack([torch.rand(d, generator=gen, device=dev) + 0.5,
+                          torch.randn(d, generator=gen, device=dev)])
+    args = (gate, e_in, values, affine, graph.by_dst, graph.src)
+    (sums, e_new), (ref_sums, ref_e_new) = gate_sigma_gather(*args), \
+        gate_sigma_gather_plain(*args)
+    err = max(cs.check_close("gate_sigma_gather_bf16.sums", torch, sums, ref_sums,
+                             cs.KERNEL_TOL, cs.KERNEL_TOL),
+              cs.check_bf16("gate_sigma_gather_bf16.e_new", torch, e_new, ref_e_new))
+    b_ms, b_by = cs.bound((3 * e * d + u_src * d) * 2 + (2 * d + 2 * n * d) * 4
+                          + (n + 1 + e) * 4, 8 * e * d)
+    m = dict(max_abs_err=err, ms=cs.time_ms(torch, lambda: gate_sigma_gather(*args)),
+             plain_ms=cs.time_ms(torch, lambda: gate_sigma_gather_plain(*args)),
+             bound_ms=b_ms, bound_by=b_by)
+    cs.log(f"  {label} gate_sigma_gather_bf16 D={d}: max_abs_err={err:.3e} ms={m['ms']:.4f} "
+           f"plain_ms={m['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    return {"gate_sigma_gather_bf16": m}
 
 
 def time_gate_fronts(torch, cs, graph, seed: int, label: str, widths,
@@ -140,6 +172,7 @@ def main() -> int:
     ap.add_argument("--dtypes", nargs="*", default=["float32", "bfloat16"],
                     choices=["float32", "bfloat16"])
     ap.add_argument("--cluster", action="store_true")
+    ap.add_argument("--steps", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     # the package from --root first; chip_smoke (shapes, timing) from here
@@ -175,8 +208,18 @@ def main() -> int:
                 if "bfloat16" in args.dtypes:
                     times[label].update(time_reverse_sum_bf16(torch, cs, graph, args.seed,
                                                               label))
+                    times[label].update(time_gate_sigma_gather_bf16(torch, cs, graph,
+                                                                    args.seed, label))
             del graph
             torch.cuda.empty_cache()
+    if args.steps:
+        graph = makers["local"]()
+        for dtype in args.dtypes:
+            cs.phase_training(torch, graph, args.seed,
+                              runs=(("batchnorm", "layer"),),
+                              compute_dtype=dtype)
+        del graph
+        torch.cuda.empty_cache()
     if args.cluster:
         import subprocess
 

@@ -26,6 +26,11 @@ import torch
 
 from gnnome_tpu_torch.config import ModelConfig
 from gnnome_tpu_torch.core.graph import build_graph
+from gnnome_tpu_torch.data.pe import pagerank_pe_torch
+from gnnome_tpu_torch.data.synthetic import bench_edges
+from gnnome_tpu_torch.decode import greedy
+from gnnome_tpu_torch.decode.device_walker import (
+    NO_FLOOR, WALK, PaddedAdjacency, WalkTables, walk_batch, walk_batch_plain, walk_buffers)
 from gnnome_tpu_torch.evaluation.metrics import bce_with_logits
 from gnnome_tpu_torch.models.model import init_model_params, model_forward
 from gnnome_tpu_torch.ops.cuda_lib import KERNELS
@@ -795,3 +800,195 @@ def test_bf16_weight_grads_take_an_f32_result(cuda, variant, monkeypatch):
         print(f"K={x.shape[0]} [{x.shape[1]}, {g.shape[1]}]: {over} of {ref.numel()} beyond one "
               f"ulp (bf16-output product: {over_bf16})")
         assert over <= 0.01 * ref.numel() and over <= over_bf16, (x.shape, over, over_bf16)
+
+
+# ---------------------------------------------------------------------------
+# decode: the walk kernel (csrc/walk.cu) and the device engine
+# ---------------------------------------------------------------------------
+# The builders below also serve the CPU tests against the JAX package
+# (tests/test_torch_decode_device.py, tests/test_torch_decode_leftovers.py):
+# this file imports no JAX.
+
+
+def decode_problem(seed: int, n: int = 1500):
+    """A bench-like graph (two strand chains, short skips) with random
+    scores, lengths and overlap features: the decode arguments."""
+    src, dst = bench_edges(n, 6 * n, seed)
+    pairs = dict.fromkeys(zip(src.tolist(), dst.tolist()))  # distinct, in order
+    src = np.array([u for u, _ in pairs], dtype=np.int64)
+    dst = np.array([v for _, v in pairs], dtype=np.int64)
+    edges = {(u, v): i for i, (u, v) in enumerate(pairs)}
+    succs = {i: [] for i in range(n)}
+    preds = {i: [] for i in range(n)}
+    for u, v in pairs:
+        succs[u].append(v)
+        preds[v].append(u)
+    rng = np.random.default_rng(seed)
+    read_length = rng.integers(5_000, 20_000, n)
+    return dict(src=src, dst=dst, scores=rng.standard_normal(len(src)) * 2.0,
+                succs=succs, preds=preds, edges=edges,
+                prefix_length=rng.integers(100, 4_000, len(src)), read_length=read_length,
+                overlap_length=rng.integers(1_000, 15_000, len(src)),
+                overlap_similarity=rng.uniform(0.9, 1.0, len(src)))
+
+
+def hand_graph():
+    """Odd node count, a 40-successor and a 40-predecessor hub, tied
+    scores, a single-successor cycle; the decode arguments with f32
+    scores."""
+    rng = np.random.default_rng(17)
+    n = 101
+    pairs = [(0, v) for v in range(1, 41)]  # hubs: 40 successors, 40 predecessors
+    pairs += [(v, 2) for v in range(50, 90)]
+    pairs += [(v, v + 2) for v in range(41, 95)]  # a chain
+    pairs += [(94, 96), (96, 94)]  # 94 <-> 96 below: single successors both ways
+    pairs += [(int(u), int(v)) for u, v in rng.integers(0, 94, (150, 2)) if u != v]
+    edges, src, dst = {}, [], []
+    for u, v in pairs:
+        cycle = (u, v) in ((94, 96), (96, 94))
+        if (u, v) not in edges and (cycle or u not in (94, 96)):
+            edges[(u, v)] = len(src)
+            src.append(u)
+            dst.append(v)
+    succs = {i: [] for i in range(n)}
+    preds = {i: [] for i in range(n)}
+    for u, v in zip(src, dst):
+        succs[u].append(v)
+        preds[v].append(u)
+    assert succs[94] == [96] and succs[96] == [94]
+    assert len(succs[0]) > 32 and len(preds[2]) > 32
+    src, dst = np.array(src), np.array(dst)
+    scores = (rng.integers(0, 4, len(src)) * 0.5 - 0.5).astype(np.float32)
+    return dict(src=src, dst=dst, scores=scores, succs=succs, preds=preds, edges=edges,
+                prefix_length=rng.integers(1, 1000, len(src)),
+                read_length=rng.integers(1000, 2000, n))
+
+
+def tiny_tables():
+    """Eight nodes (odd ones are the strand mates): 0 -> {2, 4, 6} with 4
+    and 6 tied, 2 -> 0 its single neighbor, 4 -> {0, 6} tied, 6 -> {4, 0}."""
+    nbr = torch.tensor([[2, 4, 6], [-1] * 3, [0, -1, -1], [-1] * 3, [0, 6, -1], [-1] * 3,
+                        [4, 0, -1], [-1] * 3], dtype=torch.int32)
+    score = torch.tensor([[0.5, 2.0, 2.0], [-torch.inf] * 3, [1.0, -torch.inf, -torch.inf],
+                          [-torch.inf] * 3, [3.0, 3.0, -torch.inf], [-torch.inf] * 3,
+                          [1.0, 1.0, -torch.inf], [-torch.inf] * 3])
+    prefix = torch.tensor([[10, 20, 30], [0] * 3, [40, 0, 0], [0] * 3, [50, 60, 0], [0] * 3,
+                           [70, 80, 0], [0] * 3], dtype=torch.int32)
+    deg = torch.tensor([3, 0, 1, 0, 2, 0, 2, 0], dtype=torch.int32)
+    return WalkTables(nbr, score, prefix, deg)
+
+
+def _leg_cases(g, device):
+    """(tables, starts, visited_global, frozen_extra, min_score, max_steps)
+    of a forward leg from every node (against a random global visited set)
+    and of a backward leg frozen on marks drawn at random, each without a
+    floor and with one."""
+    n = len(g["read_length"])
+    n_pad, max_steps = n + (n & 1), n + 2
+    rng = np.random.default_rng(n)
+    vg = torch.from_numpy((rng.random(n_pad) < 0.1).astype(np.uint8)).to(device)
+    frozen = torch.from_numpy((rng.random((n, n_pad)) < 0.05).astype(np.uint8)).to(device)
+    starts = torch.arange(n, dtype=torch.int32, device=device)
+    for reverse, extra in ((False, None), (True, frozen)):
+        tables = PaddedAdjacency(g["preds"] if reverse else g["succs"], g["edges"],
+                                 g["scores"].astype(np.float64), g["prefix_length"], n_pad,
+                                 reverse=reverse).tensors(device)
+        for floor in (NO_FLOOR, 0.25):
+            yield tables, starts, vg, extra, floor, max_steps
+
+
+@pytest.mark.parametrize("which", ["hand", "bench"])
+def test_walk_kernel_matches_plain(cuda, which):
+    """Walks, lengths, base counts and visited rows equal bit for bit, on
+    the hand-built graph (K = 48 > 32, ties, a single-successor cycle to
+    the step cap) and a bench-like one; each call is one launch, and one
+    set of buffers serves every call (the kernel clears it)."""
+    g = hand_graph() if which == "hand" else decode_problem(9, n=4000)
+    out = None
+    for tables, starts, vg, extra, floor, max_steps in _leg_cases(g, cuda):
+        if out is None:
+            out = walk_buffers(starts.shape[0], vg.shape[0], max_steps, cuda)
+        before = WALK.launches
+        got = walk_batch(tables, starts, vg, extra, floor, max_steps, out=out)
+        torch.cuda.synchronize()
+        assert WALK.launches == before + 1 and got is out
+        ref = walk_batch_plain(tables, starts, vg, extra, floor, max_steps)
+        for name, a, b in zip(got._fields, got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert tables.nbr.shape[1] > 32 or which == "bench"
+
+
+def test_walk_kernel_first_max_and_single_hops(cuda):
+    tables = WalkTables(*(t.to(cuda) for t in tiny_tables()))
+    starts = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    vg = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    for floor in (NO_FLOOR, 2.5, 1.0):
+        got = walk_batch(tables, starts, vg, None, floor, 6)
+        ref = walk_batch_plain(tables, starts, vg, None, floor, 6)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    got = walk_batch(tables, starts, vg, None, NO_FLOOR, 6)
+    assert got.walks.tolist() == [[0, 4, 6, -1, -1, -1], [2, 0, 4, 6, -1, -1]]
+    assert got.bp.tolist() == [80, 120]
+
+
+def test_walk_kernel_refuses_what_it_cannot_take(cuda):
+    tables = WalkTables(*(t.to(cuda) for t in tiny_tables()))
+    starts = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    vg = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        walk_batch(tables, starts.long(), vg, None, NO_FLOOR, 6)
+    with pytest.raises(ValueError):
+        walk_batch(tables, torch.tensor([0, 8], dtype=torch.int32, device=cuda), vg, None,
+                   NO_FLOOR, 6)
+    with pytest.raises(ValueError):
+        walk_batch(tables._replace(score=tables.score.t().contiguous().t()), starts, vg, None,
+                   NO_FLOOR, 6)
+    with pytest.raises(ValueError):
+        walk_batch(tables, starts.cpu(), vg, None, NO_FLOOR, 6)
+
+
+@pytest.mark.parametrize("min_prob", [0.0, 0.4])
+def test_device_engine_equals_batched_on_the_card(cuda, min_prob):
+    p = decode_problem(11, n=6000)
+    args = (p["src"], p["dst"], p["scores"].astype(np.float32), p["succs"], p["preds"],
+            p["edges"], p["prefix_length"], p["read_length"])
+    kwargs = dict(nb_paths=20, len_threshold=5, min_prob=min_prob, seed=5)
+    before = WALK.launches
+    got = greedy.get_contigs(*args, engine="device", **kwargs)
+    # two legs an iteration; the last iteration ends the loop (its best
+    # walk too short) or finds no seed edge left
+    assert got and WALK.launches - before in (2 * len(got), 2 * len(got) + 2)
+    assert got == greedy.get_contigs(*args, engine="batched", **kwargs)
+
+
+def test_pagerank_pe_torch_on_the_card(cuda):
+    g, _ = _graph(8, device=cuda)
+    args = (g.src, g.dst, g.edge_mask, g.n_nodes_padded, 16, g.n_nodes)
+    got = pagerank_pe_torch(*args)
+    assert torch.equal(got, pagerank_pe_torch(*args))  # no float atomics
+    ref = pagerank_pe_torch(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_gate_sigma_gather_bf16_kernel_rounds_its_summands(cuda, d):
+    """The bf16 gather entry against its plain version (σ of the f32 e_new,
+    each summand rounded to bf16), which the sum of the unrounded summands
+    misses."""
+    g, rng = _graph(23, device=cuda)
+    affine = torch.stack([
+        torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal(d).astype(np.float32))]).to(cuda)
+    args = (_bf(rng, g.n_edges_padded, d, device=cuda), _bf(rng, g.n_edges_padded, d, device=cuda),
+            _bf(rng, g.n_nodes_padded, d, device=cuda, scale=3.0), affine, g.by_dst, g.src)
+    with _launched("gate_sigma_gather_bf16"):
+        sums, e_new = gate_sigma_gather(*args)
+    ref_sums, ref_e_new = gate_sigma_gather_plain(*args)
+    _assert_bf16_close(e_new, ref_e_new)
+    torch.testing.assert_close(sums, ref_sums, **TOL)
+    f32 = torch.float32
+    sig = torch.sigmoid(e_new.float())
+    unrounded = torch.zeros_like(sums).index_add_(
+        0, g.dst[: g.n_edges].long(),
+        torch.cat([sig * args[2].float()[g.src], sig], dim=-1)[: g.n_edges].to(f32))
+    assert not torch.allclose(sums, unrounded, **TOL)
