@@ -113,14 +113,34 @@ stopped); any failure raises and exits non-zero:
              and visited rows equal) on phase 5's genome graph and on a
              bench graph with 40-neighbour hubs (K > 32), and
              ``pagerank_pe_torch`` twice alike bit for bit.
+12. sharded — the sharded step (``parallel/sharded.py``) through
+             ``initialize_distributed``, ``make_mesh``, ``prepare_batch``,
+             ``shard_batch`` and ``make_sharded_train_step``: (a) P = 1 over
+             NCCL on the local graph padded as the sharded batch pads it,
+             the 16-layer, D=256 BatchNorm model under ``remat="layer"`` in
+             f32 and bf16, its loss and gradients against ``train_step``'s
+             on the same graph and weights (bit for bit: the same route),
+             launches, the median ms of 3 steps beside ``train_step``'s,
+             peak memory; (b) P = 2 ranks on this one card over gloo (NCCL
+             refuses two ranks on one device), each a process of this
+             script (``--sharded-worker``) that builds its graphs from the
+             seed, on the cross-locus and the local graph, the 16-layer
+             BatchNorm and a 4-layer LayerNorm model in f32: P·H, the halo
+             rows and ``halo_comm_bytes``, the loss and rank 0's gradients
+             against the single card's step (worst and median leaf, each
+             graph to its own limits),
+             both ranks' parameters alike bit for bit after the step, two
+             forwards alike bit for bit, rank 0's launches of one step, the
+             median ms of 3 steps (two ranks share one card and gloo stages
+             the halo through the host: not a scaling number).
 
 The line before last is the kernel table as JSON, the bf16 entries after
 the f32 ones, the walk kernel last (``launches``: one training step, under ``remat="layer"``,
 of the first of the BatchNorm, LayerNorm, wide and LayerNorm + wide steps,
 in f32 and then in bf16, that runs the kernel; every
-count in ``launches_by_path``, the ClusterGCN piece step and phases 7
-and 9 as a whole among them; rows 12-13 are not on a model path, and say
-so; the walk kernel's: both decodes of phase 11, and it is not a TPU
+count in ``launches_by_path``, the ClusterGCN piece step, phases 7
+and 9 as a whole and phase 12's sharded steps (``sharded_*``) among
+them; rows 12-13 are not on a model path, and say so; the walk kernel's: both decodes of phase 11, and it is not a TPU
 kernel), the one before that the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the package beside it, the script prints
@@ -1153,6 +1173,20 @@ def phase_end_to_end(torch, cfg, model_path: Path, seed: int, device="cuda") -> 
     return data
 
 
+def grad_errors(got: dict, ref: dict) -> tuple[dict, dict]:
+    """Per leaf ``||g - g_ref|| / ||g_ref||``, and, for the leaves whose
+    reference is rounding noise (below NOISE of the whole gradient's norm),
+    ``||g||`` over the whole norm."""
+    total = math.sqrt(sum(float((r.double() ** 2).sum()) for r in ref.values()))
+    errs, noise = {}, {}
+    for k, r in ref.items():
+        if float(r.norm()) <= NOISE * total:
+            noise[k] = float(got[k].norm()) / total
+        else:
+            errs[k] = float((got[k].double() - r.double()).norm() / r.double().norm())
+    return errs, noise
+
+
 def grads_against_cpu(torch, samples: dict, seed: int, variant: str, label: str,
                       device="cuda") -> dict:
     """The 16-layer, D=256 model's parameter gradients on ``samples[device]``
@@ -1183,14 +1217,7 @@ def grads_against_cpu(torch, samples: dict, seed: int, variant: str, label: str,
                 raise AssertionError(f"{label}: launch counts {launches}, "
                                      f"expected {expected_launches(variant, 'layer')}")
         grads.append({k: leaf.grad.cpu() for k, leaf in leaves.items()})
-    got, ref = grads
-    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in ref.values())))
-    errs, noise = {}, {}
-    for k, r in ref.items():
-        if float(r.norm()) <= NOISE * total:
-            noise[k] = float(got[k].norm()) / total
-        else:
-            errs[k] = float((got[k] - r).norm() / r.norm())
+    errs, noise = grad_errors(*grads)
     worst = max(errs, key=errs.get)
     log(f"  {label}: {s.graph.n_nodes} nodes, {s.graph.n_edges} edges; parameter "
         f"gradients, card vs CPU: worst leaf {worst} {errs[worst]:.3e} (tol {GRAD_TOL}); "
@@ -2050,13 +2077,398 @@ def phase_decode(torch, data: Path, params, cfg, seed: int, device="cuda") -> di
                 read_latency_ns=latency, decode=runs)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded step (gnnome_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+# (graph, model, depth) of each P = 2 run; the LayerNorm model at 4 layers
+# to hold the phase's time (two ranks share one card over gloo)
+SHARDED_JOBS = (("cross-locus", "batchnorm", 16), ("cross-locus", "layernorm", 4),
+                ("local", "batchnorm", 16), ("local", "layernorm", 4))
+SHARDED_FRAC_LONG = {"cross-locus": FRAC_LONG, "local": 0.0}
+SHARDED_TIMEOUT_S = 600  # the P = 2 ranks' join
+# P = 2 against the single card: the shards sum their edges, and the
+# all-reduces the shards, in another order. The loss is held to
+# tests/test_sharded.py's 2e-5. Rank 0's parameter gradients, per leaf as in
+# grad_errors, are held per graph to (worst leaf, median leaf), set from
+# this phase's sound readings on an NVIDIA H100 80GB HBM3 at 700 W: local
+# worst 2.3e-3 (layer 0's A2 bias, near cancellation), median 5.5e-5;
+# cross-locus, where the halo carries 24.7k rows a rank, worst 1.6e-4, median
+# 4.8e-5; the 4-layer LayerNorm model at most 2.1e-6. The cross-locus
+# limits sit about 10x above those readings and far below what a planted
+# backward fault reads (PERF.md, phase 12).
+SHARDED_GRAD_TOL = {"local": (1e-2, 5e-4), "cross-locus": (2e-3, 5e-4)}
+SHARDED_LOSS_TOL = 2e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_sample(torch, seed: int, label: str):
+    """The ``label`` bench graph on the card, padded as the sharded batch
+    pads it (nodes to 512, edges to 1024: at P = 1 the two layouts are then
+    one), with bench features and labels."""
+    from gnnome_tpu_torch.core.graph import build_graph
+    from gnnome_tpu_torch.data.dataset import GraphSample
+    from gnnome_tpu_torch.data.synthetic import bench_edges, bench_features, bench_labels
+
+    src, dst = bench_edges(N_NODES, N_EDGES, seed, SHARDED_FRAC_LONG[label])
+    graph = build_graph(src, dst, N_NODES, node_pad_multiple=512, edge_pad_multiple=1024,
+                        device="cuda")
+    e_feat, pe = bench_features(graph, seed, 16)
+    return GraphSample(idx=0, graph=graph, e_feat=e_feat, pe=pe, y=bench_labels(graph, seed),
+                       prefix_length=None, read_length=None, overlap_length=None,
+                       overlap_similarity=None, src=src, dst=dst)
+
+
+def expected_sharded_launches(variant: str, layers: int, halo: bool) -> dict:
+    """One sharded step under ``remat="layer"``: the single card's kernels
+    (:func:`expected_launches`), and with a halo, per layer forward (twice:
+    the checkpoint runs it again) the send gathers of ``b1h`` and ``a2h``
+    and the halo reduce's segment sum over the send CSR (a by_src layout),
+    per layer backward their transposes (two segment sums, one gather);
+    the score head's exchange adds a gather and its segment sum."""
+    counts = expected_launches(variant, "layer", layers)
+    if halo:
+        tail = "_bf16" if variant.endswith("_bf16") else ""
+        counts["take_rows" + tail] += 2 * 2 * layers + 1
+        counts["segment_sum_by_src" + tail] += 2 * layers + 1
+        counts["segment_sum_by_src"] += 2 * layers  # the reduce's sums are f32
+        counts["take_rows"] += layers
+    return counts
+
+
+def timed_steps(torch, step, n: int = 3, barrier=None) -> list:
+    """Host ms of ``n`` calls of ``step``, each after a synchronize (and
+    the ranks' ``barrier``) and ending in one; sorted."""
+    times = []
+    for _ in range(n):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def phase_sharded_p1(torch, sample, seed: int) -> dict:
+    """P = 1 over NCCL: the sharded step of the 16-layer, D=256 BatchNorm
+    model in f32 and bf16 against ``train_step`` on the same graph and
+    weights, bit for bit (the same kernels on the same layouts); returns
+    the launch counts of each."""
+    import torch.distributed as dist
+
+    from gnnome_tpu_torch.config import ModelConfig
+    from gnnome_tpu_torch.models.model import init_model_params
+    from gnnome_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from gnnome_tpu_torch.parallel.sharded import (
+        make_sharded_train_step, prepare_batch, shard_batch)
+    from gnnome_tpu_torch.train.checkpoint import iter_leaves
+    from gnnome_tpu_torch.train.loop import make_optimizer, train_step
+
+    dev = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        probe = torch.arange(4.0, device=dev)
+        got = torch.empty_like(probe)
+        dist.all_to_all_single(got, probe)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        if not torch.equal(got, probe):
+            raise AssertionError("an all-to-all over one rank moved the data")
+        log(f"  process group: backend {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}, {dev}; an all-reduce and an all-to-all on it ran")
+        mesh = make_mesh()
+        if mesh.device != dev:
+            raise AssertionError(f"the mesh is on {mesh.device}, the rank on {dev}")
+        g = sample.graph
+        shard = shard_batch(prepare_batch([sample], mesh), mesh)
+        if shard.n_halo or shard.by_key.key.shape != g.by_dst.key.shape:
+            raise AssertionError("P = 1: the shard is not the padded graph")
+        pos_weight = torch.tensor(POS_WEIGHT, device=dev)
+        out = {}
+        for cdt in ("float32", "bfloat16"):
+            label = f"batchnorm{'_bf16' if cdt != 'float32' else ''}"
+            sets = {}
+            for who in ("train_step", "sharded"):
+                params = init_model_params(torch.Generator().manual_seed(seed), ModelConfig(),
+                                           dev)
+                opt = make_optimizer(params, LR)
+                if who == "train_step":
+                    def run(params=params, opt=opt):
+                        return train_step(params, opt, g, sample.e_feat, sample.pe, sample.y,
+                                          pos_weight, remat="layer", compute_dtype=cdt)[0]
+                else:
+                    step = make_sharded_train_step(mesh, remat="layer", compute_dtype=cdt)
+
+                    def run(params=params, opt=opt, step=step):
+                        return step(params, opt, shard, POS_WEIGHT)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                loss = run()
+                torch.cuda.synchronize()
+                launches = read_launches()
+                grads = {k: leaf.grad.clone() for k, leaf in iter_leaves(params)}
+                times = timed_steps(torch, run)
+                sets[who] = dict(loss=loss, grads=grads, launches=launches, ms=times,
+                                 peak=torch.cuda.max_memory_allocated())
+                del params, opt
+            a, b = sets["train_step"], sets["sharded"]
+            if b["launches"] != expected_launches(label, "layer"):
+                raise AssertionError(f"P = 1 {label}: launch counts {b['launches']}, expected "
+                                     f"{expected_launches(label, 'layer')}")
+            differ = [k for k in a["grads"] if not torch.equal(a["grads"][k], b["grads"][k])]
+            bitwise = torch.equal(a["loss"], b["loss"]) and not differ
+            log(f"  P = 1 ({dist.get_backend()}), {label}, remat 'layer': loss "
+                f"{float(b['loss']):.7f} (train_step {float(a['loss']):.7f}); loss and "
+                f"gradients bit for bit: "
+                f"{bitwise}; launches checked")
+            if not bitwise:
+                errs, _ = grad_errors(b["grads"], a["grads"])
+                raise AssertionError(f"P = 1 {label}: the sharded step and train_step differ "
+                                     f"(leaves {differ[:4]}, worst {max(errs.values()):.3e})")
+            log(f"  P = 1 {label}: step ms (3, host clock after synchronize) sharded "
+                f"{[round(t, 3) for t in b['ms']]} median {b['ms'][1]:.3f}, train_step "
+                f"{[round(t, 3) for t in a['ms']]} median {a['ms'][1]:.3f}; peak device "
+                f"memory sharded {b['peak'] / 2**30:.3f} GiB, train_step "
+                f"{a['peak'] / 2**30:.3f} GiB")
+            out[f"sharded_p1_nccl_{label}_remat_layer"] = b["launches"]
+            del sets
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_p2(torch, samples: dict, seed: int) -> dict:
+    """P = 2 ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), each a process of this script (``--sharded-worker``) that
+    builds its graphs from the seed, for each of SHARDED_JOBS against the
+    single card's step; returns rank 0's launch counts of each step."""
+    from gnnome_tpu_torch.config import ModelConfig
+    from gnnome_tpu_torch.models.model import init_model_params
+    from gnnome_tpu_torch.train.checkpoint import iter_leaves
+    from gnnome_tpu_torch.train.loop import make_optimizer, train_step
+
+    refs = {}
+    pos_weight = torch.tensor(POS_WEIGHT, device="cuda")
+    for label, variant, layers in SHARDED_JOBS:
+        s = samples[label]
+        params = init_model_params(torch.Generator().manual_seed(seed),
+                                   ModelConfig(num_gnn_layers=layers), "cuda")
+        opt = make_optimizer(params, LR)
+        loss, _ = train_step(params, opt, s.graph, s.e_feat, s.pe, s.y, pos_weight,
+                             batch_norm=VARIANTS[variant][0], remat="layer")
+        refs[(label, variant)] = (float(loss), {k: leaf.grad.cpu()
+                                                for k, leaf in iter_leaves(params)})
+        del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    job = WORK / "sharded_job.json"
+    job.write_text(json.dumps(dict(port=free_port(), seed=seed, jobs=SHARDED_JOBS,
+                                   work=str(WORK))))
+    for r in range(2):
+        (WORK / f"sharded_rank{r}.json").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--sharded-worker", str(job), str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SHARDED_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        (WORK / f"sharded_rank{r}.log").write_text(o)
+        if p.returncode != 0:
+            raise RuntimeError(f"P = 2 rank {r} failed (rc {p.returncode}):\n{o[-4000:]}")
+    log(f"  two ranks ran in {time.perf_counter() - t0:.1f} s (logs: sharded_rank*.log in "
+        f"the phases' work directory)")
+    ranks = [json.loads((WORK / f"sharded_rank{r}.json").read_text()) for r in range(2)]
+    for label, h in ranks[0]["halo"].items():
+        log(f"  {label} graph, P = 2: N_pad {h['n_pad']}, edge bucket {h['bucket']}, real "
+            f"edges per shard {h['real_edges']}; P·H {h['send_slots']} send slots per rank, "
+            f"halo rows {h['halo_rows']} (rows a rank sends its peer); halo_comm_bytes per "
+            f"layer (f32, D = 256) {h['halo_bytes_per_layer']} against an all-gather's "
+            f"{h['all_gather_bytes_per_layer']}; graph and host batch built in each rank "
+            f"{[r['halo'][label]['host_s'] for r in ranks]} s")
+    out, failed = {}, []
+    for label, variant, layers in SHARDED_JOBS:
+        key = f"{label}_{variant}"
+        r0, r1 = ranks[0][key], ranks[1][key]
+        ref_loss, ref_grads = refs[(label, variant)]
+        grads = torch.load(WORK / f"sharded_grads_{key}.pt")
+        errs, noise = grad_errors(grads, ref_grads)
+        worst = max(errs, key=errs.get)
+        median = sorted(errs.values())[len(errs) // 2]
+        worst_tol, median_tol = SHARDED_GRAD_TOL[label]
+        expect = expected_sharded_launches(variant, layers, halo=True)
+        what = f"P = 2 {label} {variant} ({layers} layers)"
+        log(f"  {what}: backend {r0['backend']} on {r0['device']}; loss {r0['loss']:.7f} "
+            f"(ranks alike: {r0['loss'] == r1['loss']}; single card {ref_loss:.7f}, rel "
+            f"{abs(r0['loss'] - ref_loss) / abs(ref_loss):.2e}, tol {SHARDED_LOSS_TOL}); "
+            f"rank 0 gradients against the single card: worst leaf {worst} "
+            f"{errs[worst]:.3e} (tol {worst_tol}), median {median:.3e} (tol {median_tol}), "
+            f"noise leaves at most {max(noise.values(), default=0.0):.2e}; parameters after "
+            f"the step alike bit for bit: {r0['params_sha'] == r1['params_sha']}; two "
+            f"forwards alike bit for bit: {r0['forward_equal'] and r1['forward_equal']}")
+        log(f"  {what}: step ms (3, host clock after synchronize, rank 0) "
+            f"{[round(t, 1) for t in r0['ms']]} median {r0['ms'][1]:.1f} (two ranks share "
+            f"one card; gloo stages the halo through the host; not a scaling number); peak "
+            f"device memory per rank {[round(r['peak'] / 2**30, 3) for r in (r0, r1)]} GiB")
+        problems = []
+        if r0["loss"] != r1["loss"] or abs(r0["loss"] - ref_loss) > SHARDED_LOSS_TOL * (
+                1 + abs(ref_loss)):
+            problems.append("loss")
+        if errs[worst] > worst_tol or median > median_tol \
+                or max(noise.values(), default=0.0) > 10 * NOISE:
+            problems.append("gradients")
+        if r0["params_sha"] != r1["params_sha"]:
+            problems.append("the ranks' parameters differ after the step")
+        if not (r0["forward_equal"] and r1["forward_equal"]):
+            problems.append("a second forward gave other logits")
+        # a rank registers only the kernels of the modules it imports
+        launches = dict.fromkeys(expect, 0)
+        launches.update((k, int(v)) for k, v in r0["launches"].items())
+        if launches != expect:
+            problems.append(f"launch counts {launches}, expected {expect}")
+        if problems:
+            failed.append(f"{what}: {problems}")
+        out[f"sharded_p2_gloo_{label}_{variant}_remat_layer"] = launches
+    if failed:  # every job read and logged first
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def sharded_worker(job_path: str, rank: int) -> int:
+    """One rank of phase 12's P = 2 runs: gloo on this card, every job of
+    the phase's job file, each graph built here from the seed; writes its
+    results beside the job file."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from gnnome_tpu_torch.config import ModelConfig
+    from gnnome_tpu_torch.models.model import init_model_params
+    from gnnome_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from gnnome_tpu_torch.parallel.sharded import (
+        halo_comm_bytes, make_sharded_train_step, prepare_batch, replicate_to_mesh,
+        shard_batch, sharded_forward)
+    from gnnome_tpu_torch.train.checkpoint import iter_leaves
+    from gnnome_tpu_torch.train.loop import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = json.loads(Path(job_path).read_text())
+    dev = initialize_distributed(f"tcp://localhost:{job['port']}", 2, rank, backend="gloo",
+                                 timeout_s=300)
+    mesh = make_mesh(1, 2, timeout_s=300)
+    if mesh.device != dev:
+        raise AssertionError(f"the mesh is on {mesh.device}, the rank on {dev}")
+    work = Path(job["work"])
+    out, halo, shards = {}, {}, {}
+    for label, variant, layers in job["jobs"]:
+        if label not in shards:
+            shards.clear()
+            t0 = time.perf_counter()
+            batch = prepare_batch([sharded_sample(torch, job["seed"], label)], mesh)
+            shards[label] = shard_batch(batch, mesh)
+            comm = halo_comm_bytes(batch, hidden=256, dtype_bytes=4)
+            halo[label] = dict(
+                n_pad=comm["n_pad"], bucket=int(batch.fwd.mask.shape[-1]),
+                real_edges=[int(m.sum()) for m in batch.fwd.mask[0]],
+                send_slots=int(batch.fwd.send_idx.shape[-1]),
+                halo_rows=[int(batch.fwd.send_offsets[0, p, -1]) for p in range(2)],
+                halo_bytes_per_layer=comm["halo_bytes_per_layer"],
+                all_gather_bytes_per_layer=comm["all_gather_bytes_per_layer"],
+                host_s=round(time.perf_counter() - t0, 2))
+            del batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        shard = shards[label]
+        key = f"{label}_{variant}"
+        batch_norm = VARIANTS[variant][0]
+        params = replicate_to_mesh(init_model_params(
+            torch.Generator().manual_seed(job["seed"]), ModelConfig(num_gnn_layers=layers),
+            dev), mesh)
+        with torch.no_grad():
+            first = sharded_forward(params, shard, mesh, batch_norm=batch_norm)
+            forward_equal = torch.equal(first, sharded_forward(params, shard, mesh,
+                                                               batch_norm=batch_norm))
+        del first
+        opt = make_optimizer(params, LR)
+        step = make_sharded_train_step(mesh, batch_norm=batch_norm, remat="layer")
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss = step(params, opt, shard, POS_WEIGHT)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if rank == 0:
+            torch.save({k: leaf.grad.cpu() for k, leaf in iter_leaves(params)},
+                       work / f"sharded_grads_{key}.pt")
+        sha = hashlib.sha256()
+        for _, leaf in iter_leaves(params):
+            sha.update(leaf.detach().cpu().numpy().tobytes())
+        times = timed_steps(torch, lambda: step(params, opt, shard, POS_WEIGHT),
+                            barrier=dist.barrier)
+        out[key] = dict(loss=float(loss), forward_equal=forward_equal, launches=launches,
+                        params_sha=sha.hexdigest(), ms=times,
+                        peak=torch.cuda.max_memory_allocated(), backend=dist.get_backend(),
+                        device=str(dev))
+        print(f"rank {rank} {key}: loss {float(loss):.7f}, ms {times}", flush=True)
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["halo"] = halo
+    (work / f"sharded_rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded(torch, seed: int) -> dict:
+    """Phase 12: (a) P = 1 over NCCL, (b) P = 2 on one card over gloo;
+    returns the launch counts of each sharded step."""
+    log("  (a) P = 1 over NCCL, local graph, 16 layers, D = 256, BatchNorm")
+    samples = {"local": sharded_sample(torch, seed, "local")}
+    out = phase_sharded_p1(torch, samples["local"], seed)
+    log("  (b) P = 2 ranks on one card over gloo (cross-locus and local graphs)")
+    samples["cross-locus"] = sharded_sample(torch, seed, "cross-locus")
+    out.update(phase_sharded_p2(torch, samples, seed))
+    del samples
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sharded-worker", nargs=2, metavar=("JOB", "RANK"),
+                    help="run one rank of phase 12's P = 2 runs (the phase starts them)")
     args = ap.parse_args()
 
     import torch
 
+    if args.sharded_worker:
+        return sharded_worker(args.sharded_worker[0], int(args.sharded_worker[1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA card",
               file=sys.stderr)
@@ -2191,11 +2603,18 @@ def main() -> int:
                                 args.seed)
     torch.cuda.empty_cache()
 
+    log("phase 12: the sharded step (parallel/sharded.py): P = 1 over NCCL, P = 2 on one "
+        "card over gloo")
+    t0 = time.perf_counter()
+    sharded_paths = phase_sharded(torch, args.seed)
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
     # the kernel table's launch counts: one full-scale step of the first
     # training path that runs the kernel; every path's count beside it
     paths = {**scoring, **{f"train_step_{v}_remat_{r}": c for (v, r), c in training.items()},
              **{f"genome_step_{v}_remat_layer": c for v, c in genome.items()},
-             **cluster, "synthetic_example": pipeline_launches, **bf16_paths}
+             **cluster, "synthetic_example": pipeline_launches, **bf16_paths,
+             **sharded_paths}
     steps = [training[run] for run in TRAIN_RUNS] + \
         [bf16_paths[f"train_step_{v}_bf16_remat_{r}"] for v, r in TRAIN_RUNS]
     for row in kernels:

@@ -88,11 +88,17 @@ def _cast_params(params, dtype: torch.dtype):
     return params.to(dtype) if params.dtype == torch.float32 else params
 
 
-def _layer_stack(layers, graph: AssemblyGraph, h, e, batch_norm: bool, wide_gathers):
+def _layer_stack(layer_fn, layers, h, e):
     for lp in layers:
-        h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
-                               wide_gathers=wide_gathers)
+        h, e = layer_fn(lp, h, e)
     return h, e
+
+
+def remat_group_size(remat: str, n_layers: int, remat_group: int) -> int:
+    """Layers per checkpoint under a checkpointing ``remat`` mode
+    (:func:`model_forward`): 1 for ``"layer"``, else ``remat_group`` (1 if
+    it does not divide the depth). The sharded step uses it too."""
+    return 1 if remat == "layer" or n_layers % remat_group else remat_group
 
 
 def _layer_rng(rng: torch.Generator, device: torch.device) -> torch.Generator:
@@ -157,16 +163,20 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
                                    dropout_rate=dropout_rate,
                                    dropout_rng=_layer_rng(dropout_rng, h.device),
                                    wide_gathers=wide_gathers)
-    elif remat == "none" or not torch.is_grad_enabled():
-        # rebinding h, e frees each layer's input once nothing saved it
-        for lp in layers:
-            h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
-                                   wide_gathers=wide_gathers)
     else:
-        g = 1 if remat == "layer" or len(layers) % remat_group else remat_group
-        for i in range(0, len(layers), g):
-            h, e = checkpoint(_layer_stack, layers[i: i + g], graph, h, e, batch_norm,
-                              wide_gathers, use_reentrant=False)
+        def layer_fn(lp, h, e):
+            return gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
+                                   wide_gathers=wide_gathers)
+
+        if remat == "none" or not torch.is_grad_enabled():
+            # rebinding h, e frees each layer's input once nothing saved it
+            for lp in layers:
+                h, e = layer_fn(lp, h, e)
+        else:
+            g = remat_group_size(remat, len(layers), remat_group)
+            for i in range(0, len(layers), g):
+                h, e = checkpoint(_layer_stack, layer_fn, layers[i: i + g], h, e,
+                                  use_reentrant=False)
     return score_predictor(params, graph, h, e).to(torch.float32)
 
 

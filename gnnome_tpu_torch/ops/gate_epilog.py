@@ -127,8 +127,10 @@ def gate_sigma_gather(gate: torch.Tensor, e_in: torch.Tensor,
     """``(sums, e_new)``: ``e_new = relu(gate·affine[0] + affine[1]) + e_in``
     per canonical edge, and per destination node
     ``sums = [Σ σ(e_new)·v ‖ Σ σ(e_new)]`` (f32 [N, 2D]) over its in-edges,
-    with ``v = values[src]`` (node table) or, without ``src``, ``values``
-    itself ([E, D] pregathered rows, ``gate_sigma_aggregate``); padded edges
+    with ``v = values[src]`` (a node table of any row count that ``src``
+    indexes: the sharded layer's combined [N_local + P·H] table) or, without
+    ``src``, ``values`` itself ([E, D] pregathered rows,
+    ``gate_sigma_aggregate``); padded edges
     (key ``PAD_SEGMENT``) join no sum. ``by_dst`` must be the canonical
     (identity) layout. ``gate``, ``e_in``, ``values`` and ``e_new`` are
     float32 or bfloat16; ``affine`` and the sums f32."""
@@ -143,9 +145,10 @@ def gate_sigma_gather(gate: torch.Tensor, e_in: torch.Tensor,
     check_cuda_args(kernel.name, [gate, e_in, values], [by_dst.offsets, *extra],
                     dtype=kernel.dtype, f32=[affine])
     n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate.shape
-    # a node table has a row per node, pregathered values one per edge
-    if gate.shape != e_in.shape or affine.shape != (2, d) \
-            or values.shape != (n_rows if src is None else n, d):
+    # pregathered values have a row per edge; a node table any count that
+    # src indexes (n sizes the sums, and the kernel does not bound src)
+    if gate.shape != e_in.shape or affine.shape != (2, d) or values.shape[1] != d \
+            or (src is None and values.shape[0] != n_rows):
         raise ValueError(f"{kernel.name}: shape mismatch")
     sums = torch.empty((n, 2 * d), dtype=torch.float32, device=gate.device)
     e_new = torch.empty_like(e_in)
@@ -201,8 +204,8 @@ def epilog_bwd(gate_raw: torch.Tensor, e_new: torch.Tensor, g_enew: torch.Tensor
     check_cuda_args(kernel.name, [gate_raw, e_new, g_enew, values], [by_dst.key, *extra],
                     dtype=kernel.dtype, f32=[g_sums, affine])
     n, (n_rows, d) = by_dst.offsets.shape[0] - 1, gate_raw.shape
-    if not (gate_raw.shape == e_new.shape == g_enew.shape) \
-            or values.shape != (n_rows if src is None else n, d) \
+    if not (gate_raw.shape == e_new.shape == g_enew.shape) or values.shape[1] != d \
+            or (src is None and values.shape[0] != n_rows) \
             or g_sums.shape != (n, 2 * d) or affine.shape != (2, d) \
             or by_dst.key.shape != (n_rows,):
         raise ValueError(f"{kernel.name}: shape mismatch")

@@ -64,7 +64,7 @@ OPP_BWD = register(Kernel(
 
 
 def sigma_reverse_sum_plain(e_new, values, by_src: CSR, dst):
-    n, d = values.shape
+    n, d = by_src.offsets.shape[0] - 1, values.shape[1]
     dt, f32 = e_new.dtype, torch.float32
     sigma = torch.sigmoid(e_new.to(f32))
     sv = sigma * values[dst].to(f32)
@@ -80,8 +80,11 @@ def sigma_reverse_sum_plain(e_new, values, by_src: CSR, dst):
 def sigma_reverse_sum(e_new: torch.Tensor, values: torch.Tensor,
                       by_src: CSR, dst: torch.Tensor) -> torch.Tensor:
     """Per source node ``[Σ σ(e_new)·values[dst] ‖ Σ σ(e_new)]`` (f32
-    [N, 2D]) over its out-edges. ``e_new`` and ``dst`` are in canonical
-    order; padded edges (key ``PAD_SEGMENT``) join no sum. float32 or
+    [N, 2D], ``N = len(by_src.offsets) - 1``) over its out-edges. ``e_new``
+    and ``dst`` are in canonical order; padded edges (key ``PAD_SEGMENT``)
+    join no sum. ``values`` may have any row count that ``dst`` indexes: the
+    sharded layer keys its edges on a combined [N_local + P·H] table
+    (``parallel/sharded.py``) and reads ``N_local`` value rows. float32 or
     bfloat16 ``e_new`` and ``values``."""
     if by_src.identity:
         raise ValueError("sigma_reverse_sum needs the by_src layout")
@@ -90,8 +93,9 @@ def sigma_reverse_sum(e_new: torch.Tensor, values: torch.Tensor,
     kernel = entry(e_new.dtype, SIGMA_REVERSE_SUM, SIGMA_REVERSE_SUM_BF16)
     check_cuda_args(kernel.name, [e_new, values], [by_src.offsets, by_src.order, dst],
                     dtype=kernel.dtype)
-    n, d = values.shape
-    if by_src.offsets.shape[0] != n + 1 or e_new.shape[1] != d:
+    # n sizes the sums (the CSR's rows); the kernel does not bound dst
+    n, d = by_src.offsets.shape[0] - 1, values.shape[1]
+    if e_new.shape[1] != d:
         raise ValueError("sigma_reverse_sum: shape mismatch")
     sums = torch.empty((n, 2 * d), dtype=torch.float32, device=e_new.device)
     kernel(e_new.device, e_new.data_ptr(), values.data_ptr(), by_src.offsets.data_ptr(),
@@ -124,10 +128,11 @@ def rev_bwd(e_new: torch.Tensor, g_sums: torch.Tensor, values: torch.Tensor,
     kernel = entry(e_new.dtype, REV_BWD, REV_BWD_BF16)
     check_cuda_args(kernel.name, [e_new, values], [by_src.segment_ids, by_src.order, dst],
                     dtype=kernel.dtype, f32=[g_sums])
-    n, d = values.shape
+    # n bounds the CSR's rows (a padded position's segment id is past it)
+    n, d = by_src.offsets.shape[0] - 1, values.shape[1]
     n_rows = e_new.shape[0]
-    if by_src.offsets.shape[0] != n + 1 or e_new.shape[1] != d \
-            or g_sums.shape != (n, 2 * d) or by_src.segment_ids.shape != (n_rows,):
+    if e_new.shape[1] != d or g_sums.shape != (n, 2 * d) \
+            or by_src.segment_ids.shape != (n_rows,):
         raise ValueError("rev_bwd: shape mismatch")
     d_e_new, d_v_rows = torch.empty_like(e_new), torch.empty_like(e_new)
     kernel(e_new.device, e_new.data_ptr(), g_sums.data_ptr(), values.data_ptr(),

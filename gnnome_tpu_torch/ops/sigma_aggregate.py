@@ -110,8 +110,9 @@ def sigma_aggregate(e: torch.Tensor, values: torch.Tensor, csr: CSR,
                     ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per key node of ``csr`` (``N = len(offsets) - 1`` rows)
     ``[Σ σ(e)·v ‖ Σ σ(e)]`` (f32 [N, 2D]) over its edges, with ``e`` [E, D]
-    in canonical order and ``v = values[ids]`` (node table, canonical ids)
-    or, without ``ids``, ``values`` itself ([E, D], canonical order).
+    in canonical order and ``v = values[ids]`` (a node table of any row
+    count that ``ids`` indexes, canonical ids) or, without ``ids``,
+    ``values`` itself ([E, D], canonical order).
     Padded edges (key ``PAD_SEGMENT``) join no sum. ``e`` and ``values``
     float32 or bfloat16 (one dtype for both)."""
     kernel = _form(csr, ids, True, e.dtype)
@@ -121,8 +122,9 @@ def sigma_aggregate(e: torch.Tensor, values: torch.Tensor, csr: CSR,
     ints = [csr.offsets, *extra, *([] if csr.identity else [csr.order])]
     check_cuda_args(kernel.name, [e, values], ints, dtype=kernel.dtype)
     n, d = csr.offsets.shape[0] - 1, e.shape[1]
-    # a node table has a row per node, pregathered values one per edge
-    if values.shape != (e.shape[0] if ids is None else n, d) \
+    # pregathered values have a row per edge; a node table any count that
+    # ids indexes (n sizes the sums, and the kernel does not bound ids)
+    if values.shape[1] != d or (ids is None and values.shape[0] != e.shape[0]) \
             or (ids is not None and ids.shape[0] != e.shape[0]):
         raise ValueError(f"{kernel.name}: shape mismatch")
     sums = torch.empty((n, 2 * d), dtype=torch.float32, device=e.device)
@@ -158,7 +160,8 @@ def sigma_aggregate_bwd(e: torch.Tensor, g_sums: torch.Tensor, values: torch.Ten
     ints = [csr.segment_ids, *extra, *([] if csr.identity else [csr.order])]
     check_cuda_args(kernel.name, [e, values], ints, dtype=kernel.dtype, f32=[g_sums])
     n, (n_rows, d) = csr.offsets.shape[0] - 1, e.shape
-    if values.shape != (n_rows if ids is None else n, d) or g_sums.shape != (n, 2 * d) \
+    if values.shape[1] != d or (ids is None and values.shape[0] != n_rows) \
+            or g_sums.shape != (n, 2 * d) \
             or (ids is not None and ids.shape[0] != n_rows) \
             or csr.segment_ids.shape != (n_rows,):
         raise ValueError(f"{kernel.name}: shape mismatch")

@@ -992,3 +992,205 @@ def test_gate_sigma_gather_bf16_kernel_rounds_its_summands(cuda, d):
         0, g.dst[: g.n_edges].long(),
         torch.cat([sig * args[2].float()[g.src], sig], dim=-1)[: g.n_edges].to(f32))
     assert not torch.allclose(sums, unrounded, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# value tables whose row count is not the segment count (the sharded
+# layer's combined [N_local + P·H] tables, parallel/sharded.py)
+# ---------------------------------------------------------------------------
+
+
+def _keyed_csr(keys, n_rows, device):
+    """The CSR over ``n_rows`` rows keyed by ``keys`` (canonical order,
+    ``PAD_SEGMENT`` or any id past the rows on padded slots)."""
+    from gnnome_tpu_torch.core.graph import CSR, PAD_SEGMENT
+
+    keys = np.where(keys < n_rows, keys, PAD_SEGMENT).astype(np.int64)
+    order = np.argsort(keys, kind="stable")
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    srt = keys[order]
+    offsets = np.searchsorted(srt, np.arange(n_rows + 1))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(device)
+
+    return CSR(key=t(keys), order=t(order), segment_ids=t(srt), offsets=t(offsets),
+               inv_order=t(inv))
+
+
+def value_table_case(seed, n_seg, n_val, device, e=700, e_pad=1024):
+    """``e`` edges (``e_pad`` rows) summed into ``n_seg`` segments, each
+    reading a row of an ``n_val``-row value table: ``by_key`` the identity
+    layout (canonical order sorted by key), ``by_rkey`` a layout keyed
+    elsewhere (the reverse aggregation's), ``ids`` the value rows (padding
+    clamped to 0) and ``by_ids`` the CSR over the ``n_val`` rows keyed by
+    them, whose segment sum is the value gradient."""
+    from gnnome_tpu_torch.core.graph import CSR, PAD_SEGMENT
+
+    rng = np.random.default_rng(seed)
+    pad = np.full(e_pad - e, PAD_SEGMENT)
+    key = np.concatenate([np.sort(rng.integers(0, n_seg, e)), pad])
+    ids = rng.integers(0, n_val, e)
+    k = torch.from_numpy(key.astype(np.int32)).to(device)
+    by_key = CSR(key=k, order=None, segment_ids=k,
+                 offsets=torch.from_numpy(np.searchsorted(key, np.arange(n_seg + 1))
+                                          .astype(np.int32)).to(device))
+    return dict(
+        rng=rng, by_key=by_key,
+        by_rkey=_keyed_csr(np.concatenate([rng.integers(0, n_seg, e), pad]), n_seg, device),
+        ids=torch.from_numpy(np.concatenate([ids, np.zeros(e_pad - e, np.int64)])
+                             .astype(np.int32)).to(device),
+        by_ids=_keyed_csr(np.concatenate([ids, pad]), n_val, device))
+
+
+VALUE_ROWS = [40, 160]  # fewer rows than the 96 segments, and more
+
+
+@pytest.mark.parametrize("n_val", VALUE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_value_table_rows_apart_from_segments(cuda, n_val, dtype):
+    """Rows 2, 3 and 10 with their gathers (gate_sigma_gather,
+    sigma_reverse_sum, sigma_aggregate's gather form) and their backwards
+    (epilog_bwd, rev_bwd, sigma_aggregate_bwd_gather) on a value table of
+    40 or 160 rows keyed into 96 segments: each kernel against its plain
+    version, the output rows those of the segments."""
+    d, n_seg = 64, 96
+    c = value_table_case(31, n_seg, n_val, cuda)
+    rng = c["rng"]
+    e_pad = c["ids"].shape[0]
+    tail = "" if dtype == torch.float32 else "_bf16"
+
+    def data(*shape):
+        return _randn(rng, *shape, device=cuda).to(dtype)
+
+    def close(got, ref):
+        if got.dtype == torch.bfloat16:
+            _assert_bf16_close(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, **TOL)
+
+    values, affine = data(n_val, d), _affine(rng, d, cuda)
+    gate, e_in, g_enew = data(e_pad, d), data(e_pad, d), data(e_pad, d)
+    g_sums = _randn(rng, n_seg, 2 * d, device=cuda)
+    args = (gate, e_in, values, affine, c["by_key"], c["ids"])
+    with _launched("gate_sigma_gather" + tail):
+        sums, e_new = gate_sigma_gather(*args)
+    ref_sums, ref_e_new = gate_sigma_gather_plain(*args)
+    assert sums.shape == (n_seg, 2 * d)
+    torch.testing.assert_close(sums, ref_sums, **TOL)
+    close(e_new, ref_e_new)
+    args = (gate, e_new, g_enew, g_sums, values, affine, c["by_key"], c["ids"])
+    with _launched("epilog_bwd" + tail):
+        got = epilog_bwd(*args)
+    ref = epilog_bwd_plain(*args)
+    for a, b in zip(got[:3], ref[:3]):
+        close(a, b)
+    torch.testing.assert_close(got[3] / e_pad, ref[3] / e_pad, **TOL)
+
+    args = (e_new, values, c["by_rkey"], c["ids"])
+    with _launched("sigma_reverse_sum" + tail):
+        sums = sigma_reverse_sum(*args)
+    assert sums.shape == (n_seg, 2 * d)
+    torch.testing.assert_close(sums, sigma_reverse_sum_plain(*args), **TOL)
+    args = (e_new, g_sums, values, c["by_rkey"], c["ids"])
+    with _launched("rev_bwd" + tail):
+        got = rev_bwd(*args)
+    for a, b in zip(got, rev_bwd_plain(*args)):
+        close(a, b)
+
+    args = (e_new, values, c["by_key"], c["ids"])
+    with _launched("sigma_aggregate_gather" + tail):
+        sums = sigma_aggregate(*args)
+    assert sums.shape == (n_seg, 2 * d)
+    torch.testing.assert_close(sums, sigma_aggregate_plain(*args), **TOL)
+    args = (e_new, g_sums, values, c["by_key"], c["ids"])
+    with _launched("sigma_aggregate_bwd_gather" + tail):
+        got = sigma_aggregate_bwd(*args)
+    for a, b in zip(got, sigma_aggregate_bwd_plain(*args)):
+        close(a, b)
+
+
+def test_halo_pair_on_the_card_at_world_size_1(cuda):
+    """The halo exchange and reduce of rank 0 of a 2-shard layout on the
+    card with no process group (an all-to-all over no group is the
+    identity): the send gather and the send CSR's segment sum run their
+    kernels, agree with the CPU, and form an exact adjoint pair on small
+    integers."""
+    from gnnome_tpu_torch.parallel.mesh import Mesh
+    from gnnome_tpu_torch.parallel.sharded import (
+        halo_exchange, halo_reduce, prepare_batch, shard_batch)
+
+    g, rng = _graph(41, n=1500, e=8000, device="cpu")  # nodes on both shards
+    sample = type("Sample", (), dict(
+        graph=g, e_feat=torch.zeros(g.n_edges_padded, 2), y=torch.zeros(g.n_edges_padded),
+        pe=torch.zeros(g.n_nodes_padded, 6)))
+    batch = prepare_batch([sample], Mesh(1, 2))
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = Mesh(1, 2, 0, torch.device(dev))
+        shard = shard_batch(batch, mesh)
+        assert (shard.by_send.key < shard.n_local).any()  # rows to send
+        r = np.random.default_rng(5)
+        x = torch.from_numpy(r.integers(-4, 5, (shard.n_local, 64)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(r.integers(-4, 5, (shard.n_local + shard.n_halo, 64))
+                             .astype(np.float32)).to(dev)
+        if dev != "cpu":
+            with _launched("take_rows"):
+                (ex,) = halo_exchange([x], shard, mesh)
+            with _launched("segment_sum_by_src"):
+                red = halo_reduce(y, shard, mesh)
+        else:
+            (ex,) = halo_exchange([x], shard, mesh)
+            red = halo_reduce(y, shard, mesh)
+        out[str(dev)] = (ex.cpu(), red.cpu(), float((ex * y).sum()), float((x * red).sum()))
+    (ex, red, lhs, rhs), (ex_c, red_c, _, _) = out["cuda"], out["cpu"]
+    assert torch.equal(ex, ex_c) and torch.equal(red, red_c)
+    assert lhs == rhs != 0.0
+
+
+@pytest.mark.parametrize("batch_norm", [True, False])
+def test_sharded_step_at_world_size_1_is_train_step(cuda, batch_norm):
+    """The sharded step at world size 1 (no process group) on the card:
+    loss and gradients bit for bit those of the single-card step on the
+    graph padded as the sharded batch pads it (the same kernels on the
+    same layouts)."""
+    from gnnome_tpu_torch.data.dataset import GraphSample
+    from gnnome_tpu_torch.parallel.mesh import make_mesh
+    from gnnome_tpu_torch.parallel.sharded import make_sharded_loss, prepare_batch, shard_batch
+    from gnnome_tpu_torch.train.checkpoint import params_from_jax
+
+    rng = np.random.default_rng(42)
+    n, e = 300, 2500
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    keep = src != dst
+    g = build_graph(src[keep], dst[keep], n, node_pad_multiple=512, edge_pad_multiple=1024,
+                    device=cuda)
+    s = GraphSample(idx=0, graph=g,
+                    e_feat=_randn(rng, g.n_edges_padded, 2, device=cuda),
+                    pe=_randn(rng, g.n_nodes_padded, 6, device=cuda),
+                    y=torch.from_numpy((rng.random(g.n_edges_padded) < 0.7)
+                                       .astype(np.float32)).to(cuda),
+                    prefix_length=None, read_length=None, overlap_length=None,
+                    overlap_similarity=None, src=None, dst=None)
+    cfg = ModelConfig(hidden_features=64, num_gnn_layers=2, nb_pos_enc=4)
+    arrays = {k: v.cpu().numpy() for k, v in iter_leaves(
+        init_model_params(torch.Generator().manual_seed(3), cfg, "cpu"))}
+    mesh = make_mesh(device=cuda)
+    shard = shard_batch(prepare_batch([s], mesh), mesh)
+
+    def grads_of(loss_fn):
+        params = params_from_jax(arrays, device=cuda)
+        for _, leaf in iter_leaves(params):
+            leaf.requires_grad_(True)
+        loss = loss_fn(params)
+        loss.backward()
+        return loss.detach(), {k: v.grad for k, v in iter_leaves(params)}
+
+    sharded_loss = make_sharded_loss(mesh, batch_norm=batch_norm)
+    loss, grads = grads_of(lambda p: sharded_loss(p, shard, 0.5)[1])
+    ref, ref_grads = grads_of(lambda p: bce_with_logits(
+        model_forward(p, g, s.e_feat, s.pe, batch_norm=batch_norm), s.y, g.edge_mask, 0.5))
+    assert torch.equal(loss, ref)
+    for k, w in ref_grads.items():
+        assert torch.equal(grads[k], w), k

@@ -268,7 +268,8 @@ def test_port_imports_no_jax():
     assert len(paths) > 20
     assert {ROOT / "gnnome_tpu_torch" / m for m in (
         "decode/device_walker.py", "decode/greedy.py", "utils/profiling.py",
-        "data/pe.py")} <= set(paths)
+        "data/pe.py", "core/collectives.py", "parallel/mesh.py",
+        "parallel/sharded.py")} <= set(paths)
     bad = {
         str(p.relative_to(ROOT)): m for p in paths for m in _imports(p)
         if m in ("jax", "jaxlib", "gnnome_tpu")
