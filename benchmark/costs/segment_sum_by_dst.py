@@ -1,0 +1,8 @@
+"""segment_sum_by_dst (csrc/segment_sum.cu): per node the f32 sum of its
+in-edges' rows, canonical order; ints ``(n, d, vec)``."""
+from benchmark.peaks import FP32_OPS_PER_S
+
+
+def cost(ints, g):
+    n, d, _ = ints
+    return (g["er"] * d + n * d + n + 1) * 4, g["e"] * d, FP32_OPS_PER_S

@@ -1,0 +1,8 @@
+"""segment_sum_by_src (csrc/segment_sum.cu): per node the f32 sum of its
+out-edges' rows through the by_src order; ints ``(n, d, vec)``."""
+from benchmark.peaks import FP32_OPS_PER_S
+
+
+def cost(ints, g):
+    n, d, _ = ints
+    return (g["er"] * d + n * d + n + 1 + g["er"]) * 4, g["e"] * d, FP32_OPS_PER_S

@@ -1,0 +1,9 @@
+"""device.idle.cluster (%): the share of the traced ClusterGCN epoch in which no
+operation ran on the device (1 - busy / window; busy is the union of the
+device's intervals)."""
+
+
+def read(view):
+    if not view.steps:
+        return None
+    return 100.0 * (1.0 - view.busy_s / view.window_s)
