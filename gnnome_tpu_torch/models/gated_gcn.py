@@ -58,6 +58,7 @@ from gnnome_tpu_torch.ops.segment import (
     gated_mean_by_src,
     gather_by_endpoint,
 )
+from gnnome_tpu_torch.utils.profiling import span
 
 WIDE_GATHERS = (False, True, "src")
 
@@ -110,17 +111,18 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
                 + linear(params["B3"], e))
 
     if batch_norm:
-        if mom is not None:
-            cnt = float(max(graph.n_edges, 1))
-            mean = mom[0] / cnt
-            var = torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
-        else:
-            mean, var = masked_moments(gate, graph.edge_mask)
-        # the affine in f32 whatever the compute dtype
-        # (gnnome_tpu/models/gated_gcn.py:151-152)
-        scale2 = torch.rsqrt(var + 1e-5) * params["norm_e"]["scale"].to(torch.float32)
-        bias2 = params["norm_e"]["bias"].to(torch.float32) - mean * scale2
-        affine = torch.stack([scale2, bias2])
+        with span("norm"):
+            if mom is not None:
+                cnt = float(max(graph.n_edges, 1))
+                mean = mom[0] / cnt
+                var = torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
+            else:
+                mean, var = masked_moments(gate, graph.edge_mask)
+            # the affine in f32 whatever the compute dtype
+            # (gnnome_tpu/models/gated_gcn.py:151-152)
+            scale2 = torch.rsqrt(var + 1e-5) * params["norm_e"]["scale"].to(torch.float32)
+            bias2 = params["norm_e"]["bias"].to(torch.float32) - mean * scale2
+            affine = torch.stack([scale2, bias2])
         if wide_gathers:
             sum_f, e_new = fused_gate_sigma_aggregate(gate, e_in, a2_src, affine,
                                                       graph.by_dst)

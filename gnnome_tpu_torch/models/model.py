@@ -27,6 +27,7 @@ from gnnome_tpu_torch.models.common import init_linear, linear
 from gnnome_tpu_torch.models.gated_gcn import gated_gcn_layer, init_gated_gcn_layer
 from gnnome_tpu_torch.ops.dense import matmul
 from gnnome_tpu_torch.ops.segment import gather_by_endpoint
+from gnnome_tpu_torch.utils.profiling import span
 
 
 def init_model_params(gen: torch.Generator, cfg, device="cuda") -> Dict:
@@ -165,8 +166,10 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
                                    wide_gathers=wide_gathers)
     else:
         def layer_fn(lp, h, e):
-            return gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
-                                   wide_gathers=wide_gathers)
+            # inside the checkpointed function: the recompute opens it again
+            with span("model.layer"):
+                return gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
+                                       wide_gathers=wide_gathers)
 
         if remat == "none" or not torch.is_grad_enabled():
             # rebinding h, e frees each layer's input once nothing saved it

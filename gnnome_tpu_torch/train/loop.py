@@ -44,6 +44,7 @@ from gnnome_tpu_torch.models.model import (
 from gnnome_tpu_torch.train import checkpoint as ckpt
 from gnnome_tpu_torch.train.checkpoint import iter_leaves
 from gnnome_tpu_torch.utils.logging import MetricsLogger
+from gnnome_tpu_torch.utils.profiling import span
 
 _COUNT_KEYS = ("tp", "tn", "fp", "fn")
 
@@ -114,15 +115,20 @@ def train_step(params, opt: torch.optim.Adam, graph: AssemblyGraph, e_feat, pe, 
     """One full-graph optimization step; ``params`` are updated in place
     (f32 master weights and Adam under any ``compute_dtype``). Returns
     ``(loss, counts)`` as device tensors (nothing is fetched)."""
-    opt.zero_grad(set_to_none=True)
-    logits = model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
-                           remat=remat, remat_group=remat_group,
-                           wide_gathers=wide_gathers, compute_dtype=compute_dtype)
-    loss = bce_with_logits(logits, y, graph.edge_mask, pos_weight)
-    loss.backward()
-    opt.step()
-    with torch.no_grad():
-        counts = confusion_counts(logits, y, graph.edge_mask)
+    with span("train.step"):
+        with span("train.optimizer"):
+            opt.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            logits = model_forward(params, graph, e_feat, pe, batch_norm=batch_norm,
+                                   remat=remat, remat_group=remat_group,
+                                   wide_gathers=wide_gathers, compute_dtype=compute_dtype)
+            loss = bce_with_logits(logits, y, graph.edge_mask, pos_weight)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            opt.step()
+        with torch.no_grad():
+            counts = confusion_counts(logits, y, graph.edge_mask)
     return loss.detach(), counts
 
 
@@ -172,7 +178,8 @@ def _epoch_pass(samples, params, opt, pos_weight, cfg: Config, train_mode: bool,
                                             wide_gathers=wide,
                                             compute_dtype=cfg.train.compute_dtype)
             # one device fetch per step: loss and the four counts packed
-            packed = torch.stack([loss, *(counts[k] for k in _COUNT_KEYS)]).cpu().numpy()
+            with span("train.fetch"):
+                packed = torch.stack([loss, *(counts[k] for k in _COUNT_KEYS)]).cpu().numpy()
             g_losses.append(float(packed[0]))
             g_metrics.append(classification_metrics(dict(zip(_COUNT_KEYS, packed[1:]))))
         losses.append(float(np.mean(g_losses)))

@@ -1,23 +1,43 @@
 """Structured profiling (counterpart of ``gnnome_tpu/utils/profiling.py``;
 the reference imports torch.profiler but never uses it, ``train.py:16``;
-its only timing is ad-hoc wall clock, ``utils.py:143-146``). Here:
-torch.profiler traces + a timer registry."""
+its only timing is ad-hoc wall clock, ``utils.py:143-146``). Here: the
+program's spans and a torch.profiler trace exporter.
+
+A span (:func:`span`) marks where a part of the program runs: the training
+step's forward, backward and optimizer, each GatedGCN layer, the norms. It
+costs one flag check while no profiler records, and is a ``gnnome.<name>``
+range on the profiler's own timeline while one does, so the device time of
+the kernels each part launches can be put down to it.
+"""
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_PREFIX = "gnnome."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``gnnome.<name>`` range while a profiler records; otherwise a shared
+    no-op context, after one check of the profiler's flag. Changes no value,
+    adds no autograd node and saves no tensor."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
     """Capture a torch.profiler trace of the host and, where there is a
-    card, its kernels; written on exit as a Chrome trace
-    (``<log_dir>/trace_<pid>_<ns>.json``, viewable in Perfetto)."""
+    card, its kernels, with the program's spans; written on exit as a
+    Chrome trace (``<log_dir>/trace_<pid>_<ns>.json``, viewable in
+    Perfetto)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -26,36 +46,6 @@ def trace(log_dir: str) -> Iterator[None]:
         yield
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-def annotate(name: str):
-    """Named region that shows up inside traces."""
-    return torch.profiler.record_function(name)
-
-
-class Timers:
-    """Wall-clock stage timers (`timedelta_to_str`-style reporting,
-    ``utils.py:143-146``, but aggregated)."""
-
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def time(self, name: str) -> Iterator[None]:
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.time() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals):
-            t, c = self.totals[name], self.counts[name]
-            lines.append(f"{name}: {t:.2f}s total, {c}x, {t / max(c,1):.3f}s avg")
-        return "\n".join(lines)
 
 
 def timedelta_to_str(seconds: float) -> str:

@@ -27,7 +27,8 @@ import torch
 from gnnome_tpu_torch.config import ModelConfig
 from gnnome_tpu_torch.core.graph import build_graph
 from gnnome_tpu_torch.data.pe import pagerank_pe_torch
-from gnnome_tpu_torch.data.synthetic import bench_edges
+from gnnome_tpu_torch.data.synthetic import (
+    bench_edges, bench_features, bench_labels, build_bench_graph)
 from gnnome_tpu_torch.decode import greedy
 from gnnome_tpu_torch.decode.device_walker import (
     NO_FLOOR, WALK, PaddedAdjacency, WalkTables, walk_batch, walk_batch_plain, walk_buffers)
@@ -419,6 +420,44 @@ def test_model_step_kernels_match_plain(cuda, variant):
             assert got[k].norm() <= 1e-5 * total, k
         else:
             assert (got[k] - r).norm() <= 1e-4 * r.norm(), k
+
+
+def test_step_spans_account_for_the_step(cuda):
+    """Two 150k-node / 1M-edge BatchNorm steps (the shipped model, remat
+    ``"layer"``) under the profiler: the phases that ``benchmark/spans.py``
+    reads from the program's spans sum to within 2% of the steps' device
+    time, and the norms' backward (autograd's device thread, linked by
+    sequence number to the forward) and the recompute both read above
+    zero."""
+    from benchmark import spans
+    from gnnome_tpu_torch.train.loop import make_optimizer, train_step
+
+    graph, _ = build_bench_graph(150_000, 1_000_000, seed=5, frac_long=0.1193, device=cuda)
+    cfg = ModelConfig()
+    e_feat, pe = bench_features(graph, 5, cfg.nb_pos_enc)
+    y = bench_labels(graph, 5)
+    params = init_model_params(torch.Generator().manual_seed(5), cfg, cuda)
+    opt = make_optimizer(params, 1e-3)
+    pos_weight = torch.tensor(0.5, device=cuda)
+    train_step(params, opt, graph, e_feat, pe, y, pos_weight)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            train_step(params, opt, graph, e_feat, pe, y, pos_weight)
+        torch.cuda.synchronize()
+    events = prof.events()
+    out = spans.reduce(events)
+    kernel_s = sum((e.time_range.end - e.time_range.start) / 1e6 for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    phases = sum(out[k] for k in spans.KINDS)
+    print({k: round(v * 1e3 / 2, 3) if isinstance(v, float) else v for k, v in out.items()},
+          f"kernels {kernel_s * 1e3 / 2:.3f} ms a step")
+    assert out["steps"] == 2 and spans.unlinked_seconds(events) == 0.0
+    assert abs(phases - kernel_s) <= 0.02 * kernel_s
+    assert out["norm_backward"] > 0 and out["norm_forward"] > 0
+    assert out["recompute"] > 0 and out["optimizer"] > 0
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):

@@ -7,7 +7,6 @@ Decoding and the random-walk PE are exact (same walks, same bits). The
 PageRank PE is f32 on both sides, summed in the same edge order: rtol 1e-6.
 """
 import json
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,25 +91,19 @@ def test_pagerank_pe_torch_matches_jax(n, e, k):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_timers_and_timedelta_equal_jax(monkeypatch):
-    clock = iter(np.arange(0.0, 100.0, 0.75))
-    monkeypatch.setattr(time, "time", lambda: float(next(clock)))
-    reports = []
-    for mod in (profiling, jax_profiling):
-        timers = mod.Timers()
-        for name in ("load", "step", "step", "decode"):
-            with timers.time(name):
-                pass
-        reports.append((timers.report(), dict(timers.counts)))
-    assert reports[0] == reports[1] and reports[0][1] == {"load": 1, "step": 2, "decode": 1}
+def test_timers_and_timedelta_equal_jax():
+    """``timedelta_to_str`` as JAX's; the port has no ``Timers`` (a host
+    clock around asynchronous launches times the enqueue): its spans and
+    ``trace`` take the device's own timeline instead."""
+    assert hasattr(jax_profiling, "Timers") and not hasattr(profiling, "Timers")
     for s in (0, 59.9, 61, 3600, 3725.5, 90061):
         assert profiling.timedelta_to_str(s) == jax_profiling.timedelta_to_str(s)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
-        with profiling.annotate("decode_block"):
+        with profiling.span("decode_block"):
             torch.ones(64).cumsum(0)
     (path,) = (tmp_path / "trace").glob("trace_*.json")
     events = json.loads(path.read_text())["traceEvents"]
-    assert any(ev.get("name") == "decode_block" for ev in events)
+    assert any(ev.get("name") == "gnnome.decode_block" for ev in events)
