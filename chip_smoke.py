@@ -27,7 +27,10 @@ stopped); any failure raises and exits non-zero:
              tiles of edges (rows 8, 9, 13 and the backwards of 10 and 11)
              on the local graph with a hub row of 10,000 in- and 10,000
              out-edges; each walk's outputs (d_affine among them) alike bit
-             for bit in two calls.
+             for bit in two calls. The LayerNorm row kernel
+             (``csrc/layer_norm.cu``, forward and backward) runs at the
+             LayerNorm model's edge and node shapes beside its plain
+             version and ``torch.nn.functional.layer_norm`` + relu + add.
 3. scoring — the serving path: ``score_graph`` of the 16-layer, D=256
              GatedGCN on both graphs, with the shipped BatchNorm weights
              (``pretrained/model_hardfull40.npz``) and with seeded random
@@ -541,6 +544,10 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
     from gnnome_tpu_torch.ops.gate_front import (
         GATE_FRONT, GATE_FRONT_BWD, gate_front, gate_front_bwd, gate_front_bwd_plain,
         gate_front_plain)
+    from gnnome_tpu_torch.ops.norm import (
+        LAYER_NORM, LAYER_NORM_BWD, layer_norm_relu_residual_bwd,
+        layer_norm_relu_residual_bwd_plain, layer_norm_relu_residual_fwd,
+        layer_norm_relu_residual_plain)
     from gnnome_tpu_torch.ops.reverse_sum import (
         SIGMA_OPPOSITE, SIGMA_REVERSE_SUM, sigma_opposite, sigma_opposite_plain,
         sigma_reverse_sum, sigma_reverse_sum_plain)
@@ -719,6 +726,42 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
     record(GATE_FRONT_BWD, err, KERNEL_TOL, lambda: gate_front_bwd(*args),
            lambda: gate_front_bwd_plain(*args), None, (3 * e * d + 3 * d) * 4, 5 * e * d)
     del got, ref, args, data, e_new, values, vals, affine
+    # the LayerNorm -> ReLU -> residual row kernel (no TPU kernel: XLA fuses
+    # it), the LayerNorm model's edge norm at [E, D] and node norm at [N, D];
+    # the library yardstick, which the port never calls, is
+    # torch.nn.functional.layer_norm, then relu and the add. The backward is
+    # held to the kernel's formula under the kernel's own ReLU mask (the
+    # forward with a zero residual), so no row flips sides of the ReLU.
+    parts = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    for rows_n in (e, n):
+        x, res, g_ln = randn(rows_n, d, scale=2.0) + 0.5, randn(rows_n, d), randn(rows_n, d)
+        ln_s, ln_b = randn(d, scale=0.5) + 1.0, randn(d, scale=0.5)
+        args = (x, ln_s, ln_b, res)
+        err = check_close("layer_norm_relu_residual", torch, layer_norm_relu_residual_fwd(*args),
+                          layer_norm_relu_residual_plain(*args), KERNEL_TOL, KERNEL_TOL)
+        fwd = (LAYER_NORM, err, KERNEL_TOL, lambda: layer_norm_relu_residual_fwd(*args),
+               lambda: layer_norm_relu_residual_plain(*args),
+               lambda: torch.relu(torch.nn.functional.layer_norm(x, (d,), ln_s, ln_b, 1e-5))
+               + res, (3 * rows_n * d + 2 * d) * 4, 10 * rows_n * d)
+        keep = layer_norm_relu_residual_fwd(x, ln_s, ln_b, torch.zeros_like(res)) > 0
+        got = layer_norm_relu_residual_bwd(x, g_ln, ln_s, ln_b)
+        ref = layer_norm_relu_residual_bwd_plain(x, g_ln, ln_s, ln_b, keep=keep)
+        err = max(check_close("layer_norm_relu_residual_bwd.dx", torch, got[0], ref[0],
+                              KERNEL_TOL, KERNEL_TOL),
+                  check_close("layer_norm_relu_residual_bwd.d_affine/R", torch,
+                              got[1] / rows_n, ref[1] / rows_n, KERNEL_TOL, KERNEL_TOL))
+        bwd = (LAYER_NORM_BWD, err, KERNEL_TOL,
+               lambda: layer_norm_relu_residual_bwd(x, g_ln, ln_s, ln_b),
+               lambda: layer_norm_relu_residual_bwd_plain(x, g_ln, ln_s, ln_b), None,
+               (3 * rows_n * d + 4 * d + 2 * parts * d) * 4, 20 * rows_n * d)
+        if rows_n == e:
+            record(*fwd)
+            record(*bwd)
+        else:
+            for m in (fwd, bwd):
+                row = next(r for r in rows_out if r["name"] == m[0].name)
+                row["at_node"] = measure_f32(*m, what=f" [N, {d}]")
+        del x, res, g_ln, args, keep, got, ref
     # 8, 9, 10's and 11's backwards and 13: the edge-balanced walks
     for case in walk_cases(torch, graph, gen):
         err = check_walk(torch, case)
@@ -934,26 +977,31 @@ def phase_scoring(torch, graph, params, cfg, seed: int, variant: str,
 # sum over the gathered endpoint's CSR
 FWD_PER_LAYER = {
     "batchnorm": {"gate_front": 1, "gate_sigma_gather": 1, "sigma_reverse_sum": 1},
-    "layernorm": {"take_rows": 2, "sigma_aggregate_gather": 1, "sigma_reverse_sum": 1},
+    "layernorm": {"take_rows": 2, "sigma_aggregate_gather": 1, "sigma_reverse_sum": 1,
+                  "layer_norm_relu_residual": 2},
     "wide": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_aggregate_by_src": 1},
     "wide_src": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_reverse_sum": 1},
-    "layernorm_wide": {"take_rows": 2, "sigma_aggregate": 1, "sigma_aggregate_by_src": 1},
+    "layernorm_wide": {"take_rows": 2, "sigma_aggregate": 1, "sigma_aggregate_by_src": 1,
+                       "layer_norm_relu_residual": 2},
 }
 BWD_PER_LAYER = {
     # gate front's d_b1h / d_b2h, the epilog's d_values by src, the reverse
     # aggregation's d_values by dst
     "batchnorm": {"gate_front_bwd": 1, "epilog_bwd": 1, "rev_bwd": 1,
                   "segment_sum_by_dst": 2, "segment_sum_by_src": 2},
-    # the two gathers, h_fwd's d_values by src, h_bwd's by dst
+    # the two gathers, h_fwd's d_values by src, h_bwd's by dst; the edge and
+    # node norms
     "layernorm": {"sigma_aggregate_bwd_gather": 1, "rev_bwd": 1,
-                  "segment_sum_by_dst": 2, "segment_sum_by_src": 2},
+                  "segment_sum_by_dst": 2, "segment_sum_by_src": 2,
+                  "layer_norm_relu_residual_bwd": 2},
     # the two paired gathers; the pregathered halves need no segment sum
     "wide": {"epilog_bwd_pregathered": 1, "sigma_aggregate_bwd_by_src": 1,
              "segment_sum_by_dst": 1, "segment_sum_by_src": 1},
     "wide_src": {"epilog_bwd_pregathered": 1, "rev_bwd": 1,
                  "segment_sum_by_dst": 2, "segment_sum_by_src": 1},
     "layernorm_wide": {"sigma_aggregate_bwd": 1, "sigma_aggregate_bwd_by_src": 1,
-                       "segment_sum_by_dst": 1, "segment_sum_by_src": 1},
+                       "segment_sum_by_dst": 1, "segment_sum_by_src": 1,
+                       "layer_norm_relu_residual_bwd": 2},
 }
 # compute_dtype="bfloat16": the same kernels' bf16 entries, and no f32 entry
 for _table in (FWD_PER_LAYER, BWD_PER_LAYER):
@@ -1068,6 +1116,11 @@ PORT_KERNELS = {  # device kernel name -> the wrapper(s) that launch it
     "sigma_aggregate_bwd_gather_kernel": "sigma_aggregate_bwd_gather",
     "sigma_aggregate_bwd_kernel": "sigma_aggregate_bwd",
     "sigma_aggregate_bwd_by_src_kernel": "sigma_aggregate_bwd_by_src",
+    "layer_norm_relu_residual_kernel": "layer_norm_relu_residual",
+    "layer_norm_relu_residual_looped_kernel": "layer_norm_relu_residual",
+    "layer_norm_relu_residual_bwd_kernel": "layer_norm_relu_residual_bwd",
+    "layer_norm_relu_residual_bwd_looped_kernel": "layer_norm_relu_residual_bwd",
+    "ln_affine_reduce_kernel": "layer_norm_relu_residual_bwd",
 }
 
 

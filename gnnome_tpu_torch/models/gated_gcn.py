@@ -22,7 +22,8 @@ Every branch runs on kernels, following the JAX layer line by line
   reverse aggregation; the BatchNorm statistics taken from ``mom`` stay
   plain autograd, which carries ``d_mom`` into the gate front's backward;
 * ``batch_norm=False`` (LayerNorm): the two endpoint gathers (row gather
-  kernel, segment-sum backward) plus ``B3·e``, the LayerNorm, the forward
+  kernel, segment-sum backward) plus ``B3·e``, the LayerNorm with its ReLU
+  and residual in one row kernel (edge and node norm alike), the forward
   aggregation with the gather inside the σ-aggregate kernel, and the
   reverse aggregation;
 * ``wide_gathers`` (``True`` / ``"src"``): the endpoint tables are gathered
@@ -48,7 +49,8 @@ import torch
 
 from gnnome_tpu_torch.core.graph import AssemblyGraph
 from gnnome_tpu_torch.models.common import init_linear, init_norm, linear
-from gnnome_tpu_torch.ops.norm import masked_batch_norm, masked_layer_norm, masked_moments
+from gnnome_tpu_torch.ops.norm import (
+    layer_norm_relu_residual, masked_batch_norm, masked_moments)
 from gnnome_tpu_torch.ops.segment import (
     fused_gate_front,
     fused_gate_sigma_aggregate,
@@ -130,9 +132,8 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
             sum_f, e_new = fused_gate_sigma_gather(gate, e_in, a2h, affine, graph)
         h_fwd = sum_f[:, :d] / (sum_f[:, d:] + eps)
     else:
-        gate = masked_layer_norm(gate, params["norm_e"]["scale"],
-                                 params["norm_e"]["bias"])
-        e_new = torch.relu(gate) + e_in
+        e_new = layer_norm_relu_residual(gate, params["norm_e"]["scale"],
+                                         params["norm_e"]["bias"], e_in)
         if wide_gathers:
             h_fwd = gated_aggregate_pregathered(a2_src, e_new, graph.by_dst, eps)
         else:
@@ -147,9 +148,10 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
     if batch_norm:
         h = masked_batch_norm(h, graph.node_mask, params["norm_h"]["scale"],
                               params["norm_h"]["bias"])
+        h = torch.relu(h) + h_in
     else:
-        h = masked_layer_norm(h, params["norm_h"]["scale"], params["norm_h"]["bias"])
-    h = torch.relu(h) + h_in
+        h = layer_norm_relu_residual(h, params["norm_h"]["scale"], params["norm_h"]["bias"],
+                                     h_in)
     if dropout_rate > 0.0 and dropout_rng is not None:
         keep = torch.rand(h.shape, generator=dropout_rng, device=h.device) \
             < 1.0 - dropout_rate

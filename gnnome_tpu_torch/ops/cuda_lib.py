@@ -125,6 +125,7 @@ def library() -> ctypes.CDLL:
 P = ctypes.c_void_p  # device pointer (tensor.data_ptr()) or stream handle
 I64 = ctypes.c_int64
 I32 = ctypes.c_int
+F32 = ctypes.c_float
 
 
 class Kernel:

@@ -69,7 +69,7 @@ from gnnome_tpu_torch.models.model import (
 from gnnome_tpu_torch.ops.dense import matmul
 from gnnome_tpu_torch.ops.gate_epilog import GateSigmaGather
 from gnnome_tpu_torch.ops.gate_front import GateFront
-from gnnome_tpu_torch.ops.norm import masked_batch_norm, masked_layer_norm
+from gnnome_tpu_torch.ops.norm import layer_norm_relu_residual, masked_batch_norm
 from gnnome_tpu_torch.ops.reverse_sum import SigmaReverseSum
 from gnnome_tpu_torch.ops.segment import _mean
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
@@ -487,8 +487,8 @@ def _sharded_gated_gcn_layer(lp: Dict, h: torch.Tensor, e: torch.Tensor,
         gate = (TakeRows.apply(b1_tab, shard.ref, shard.by_ref)
                 + TakeRows.apply(b2h, shard.key, shard.by_key)
                 + linear(lp["B3"], e))
-        gate = masked_layer_norm(gate, lp["norm_e"]["scale"], lp["norm_e"]["bias"])
-        e_new = torch.relu(gate) + e_in
+        e_new = layer_norm_relu_residual(gate, lp["norm_e"]["scale"], lp["norm_e"]["bias"],
+                                         e_in)
         sum_f = SigmaAggregate.apply(e_new, a2_tab, shard.by_key, shard.ref, shard.by_ref)
     h_fwd = _mean(sum_f, eps)
     # reverse aggregation: σ·a3h[dst] partial sums over the combined table
@@ -499,9 +499,10 @@ def _sharded_gated_gcn_layer(lp: Dict, h: torch.Tensor, e: torch.Tensor,
     if batch_norm:
         h = masked_batch_norm(h, shard.node_mask, lp["norm_h"]["scale"],
                               lp["norm_h"]["bias"], group=mesh.graph_group)
+        h = torch.relu(h) + h_in
     else:
-        h = masked_layer_norm(h, lp["norm_h"]["scale"], lp["norm_h"]["bias"])
-    return torch.relu(h) + h_in, e_new
+        h = layer_norm_relu_residual(h, lp["norm_h"]["scale"], lp["norm_h"]["bias"], h_in)
+    return h, e_new
 
 
 def sharded_forward(params: Dict, shard: RankShard, mesh: Mesh, batch_norm: bool = True,

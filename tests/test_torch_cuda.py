@@ -39,6 +39,10 @@ from gnnome_tpu_torch.ops.gate_epilog import (
     epilog_bwd, epilog_bwd_plain, gate_sigma_gather, gate_sigma_gather_plain)
 from gnnome_tpu_torch.ops.gate_front import (
     _gate_front_bf16, gate_front, gate_front_bwd, gate_front_bwd_plain, gate_front_plain)
+from gnnome_tpu_torch.ops.norm import (
+    layer_norm_plan, layer_norm_relu_residual, masked_layer_norm, layer_norm_relu_residual_bwd,
+    layer_norm_relu_residual_bwd_plain, layer_norm_relu_residual_fwd,
+    layer_norm_relu_residual_plain)
 from gnnome_tpu_torch.ops.reverse_sum import (
     opp_bwd, opp_bwd_plain, rev_bwd, rev_bwd_plain, sigma_opposite, sigma_opposite_plain,
     sigma_reverse_sum, sigma_reverse_sum_plain)
@@ -357,14 +361,16 @@ def test_edge_walks_on_padded_tail_and_hub(cuda, shape, entry, d):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-# launches of one 2-layer autograd step under remat="layer" (forward twice)
+# launches of one 2-layer autograd step under remat="layer" (forward twice;
+# the LayerNorm's entry twice a layer forward: the edge and the node norm)
 STEP_LAUNCHES = {
     "batchnorm": {"take_rows": 2, "gate_front": 4, "gate_sigma_gather": 4,
                   "sigma_reverse_sum": 4, "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
                   "gate_front_bwd": 2, "epilog_bwd": 2, "rev_bwd": 2},
     "layernorm": {"take_rows": 10, "sigma_aggregate_gather": 4, "sigma_reverse_sum": 4,
                   "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
-                  "sigma_aggregate_bwd_gather": 2, "rev_bwd": 2},
+                  "sigma_aggregate_bwd_gather": 2, "rev_bwd": 2,
+                  "layer_norm_relu_residual": 8, "layer_norm_relu_residual_bwd": 4},
     "wide": {"take_rows": 10, "gate_sigma_aggregate": 4, "sigma_aggregate_by_src": 4,
              "segment_sum_by_dst": 3, "segment_sum_by_src": 3, "epilog_bwd_pregathered": 2,
              "sigma_aggregate_bwd_by_src": 2},
@@ -373,7 +379,8 @@ STEP_LAUNCHES = {
                  "epilog_bwd_pregathered": 2, "rev_bwd": 2},
     "layernorm_wide": {"take_rows": 10, "sigma_aggregate": 4, "sigma_aggregate_by_src": 4,
                        "segment_sum_by_dst": 3, "segment_sum_by_src": 3,
-                       "sigma_aggregate_bwd": 2, "sigma_aggregate_bwd_by_src": 2},
+                       "sigma_aggregate_bwd": 2, "sigma_aggregate_bwd_by_src": 2,
+                       "layer_norm_relu_residual": 8, "layer_norm_relu_residual_bwd": 4},
 }
 VARIANTS = {"batchnorm": (True, False), "layernorm": (False, False), "wide": (True, True),
             "wide_src": (True, "src"), "layernorm_wide": (False, True)}
@@ -422,13 +429,10 @@ def test_model_step_kernels_match_plain(cuda, variant):
             assert (got[k] - r).norm() <= 1e-4 * r.norm(), k
 
 
-def test_step_spans_account_for_the_step(cuda):
-    """Two 150k-node / 1M-edge BatchNorm steps (the shipped model, remat
-    ``"layer"``) under the profiler: the phases that ``benchmark/spans.py``
-    reads from the program's spans sum to within 2% of the steps' device
-    time, and the norms' backward (autograd's device thread, linked by
-    sequence number to the forward) and the recompute both read above
-    zero."""
+def _step_spans(cuda, batch_norm: bool):
+    """Two 150k-node / 1M-edge steps of the 16-layer model (remat
+    ``"layer"``) under the profiler: ``benchmark/spans.py``'s reduction and
+    the device seconds of every kernel."""
     from benchmark import spans
     from gnnome_tpu_torch.train.loop import make_optimizer, train_step
 
@@ -439,25 +443,54 @@ def test_step_spans_account_for_the_step(cuda):
     params = init_model_params(torch.Generator().manual_seed(5), cfg, cuda)
     opt = make_optimizer(params, 1e-3)
     pos_weight = torch.tensor(0.5, device=cuda)
-    train_step(params, opt, graph, e_feat, pe, y, pos_weight)
+    kw = dict(batch_norm=batch_norm)
+    train_step(params, opt, graph, e_feat, pe, y, pos_weight, **kw)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(2):
-            train_step(params, opt, graph, e_feat, pe, y, pos_weight)
+            train_step(params, opt, graph, e_feat, pe, y, pos_weight, **kw)
         torch.cuda.synchronize()
     events = prof.events()
     out = spans.reduce(events)
     kernel_s = sum((e.time_range.end - e.time_range.start) / 1e6 for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
-    phases = sum(out[k] for k in spans.KINDS)
     print({k: round(v * 1e3 / 2, 3) if isinstance(v, float) else v for k, v in out.items()},
           f"kernels {kernel_s * 1e3 / 2:.3f} ms a step")
     assert out["steps"] == 2 and spans.unlinked_seconds(events) == 0.0
+    return out, kernel_s
+
+
+def test_step_spans_account_for_the_step(cuda):
+    """Two 150k-node / 1M-edge BatchNorm steps (the shipped model, remat
+    ``"layer"``) under the profiler: the phases that ``benchmark/spans.py``
+    reads from the program's spans sum to within 2% of the steps' device
+    time, and the norms' backward (autograd's device thread, linked by
+    sequence number to the forward) and the recompute both read above
+    zero."""
+    from benchmark import spans
+
+    out, kernel_s = _step_spans(cuda, batch_norm=True)
+    phases = sum(out[k] for k in spans.KINDS)
     assert abs(phases - kernel_s) <= 0.02 * kernel_s
     assert out["norm_backward"] > 0 and out["norm_forward"] > 0
     assert out["recompute"] > 0 and out["optimizer"] > 0
+
+
+def test_layernorm_step_spans_hold_the_norm_kernels(cuda):
+    """The same on the LayerNorm model: the phases account for the step, and
+    the norm spans hold the fused norm's kernels in all three phases and
+    not the layer's recompute, which its backward's first read of a saved
+    tensor runs (outside its span)."""
+    from benchmark import spans
+
+    out, kernel_s = _step_spans(cuda, batch_norm=False)
+    phases = sum(out[k] for k in spans.KINDS)
+    assert abs(phases - kernel_s) <= 0.02 * kernel_s
+    assert out["norm_forward"] > 0 and out["norm_backward"] > 0 and out["norm_recompute"] > 0
+    # the recompute runs the forward's norm kernels again, and no more
+    assert out["norm_recompute"] <= 1.5 * out["norm_forward"]
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):
@@ -467,6 +500,13 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         take_rows(table.double(), g.src)  # no f64 kernel, and no fallback
     with pytest.raises(ValueError):
         take_rows(table, g.src.cpu())  # mixed devices
+    sb = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError):
+        layer_norm_relu_residual_fwd(table.double(), sb.double(), sb.double(), table.double())
+    with pytest.raises(ValueError):
+        layer_norm_relu_residual_fwd(table, sb, sb, table.bfloat16())  # one dtype for all
+    with pytest.raises(ValueError):
+        layer_norm_relu_residual_bwd(table, table[:, :4].contiguous(), sb, sb)
 
 
 # ---------------------------------------------------------------------------
@@ -1233,3 +1273,158 @@ def test_sharded_step_at_world_size_1_is_train_step(cuda, batch_norm):
     assert torch.equal(loss, ref)
     for k, w in ref_grads.items():
         assert torch.equal(grads[k], w), k
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm -> ReLU -> residual row kernel (csrc/layer_norm.cu)
+# ---------------------------------------------------------------------------
+
+# (rows, D): the edge norm's full size; the tests' small and ragged widths
+# (16-byte rows of 1, 2 and 9 chunks a group; D = 6 of single elements);
+# the looped instance past 32 values a lane (D = 1100, 4096)
+LN_SHAPES = [(1_000_000, 256), (999, 8), (999, 72), (999, 264), (333, 6), (257, 1100),
+             (65, 4096)]
+
+
+def _ln_case(cuda, rows, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(rows * 7919 + d)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale + shift).to(dtype)
+
+    # rows centred at 0.5 with spread 2, so the mean is not zero
+    return (randn(rows, d, scale=2.0, shift=0.5), randn(d, scale=0.5, shift=1.0),
+            randn(d, scale=0.5), randn(rows, d), randn(rows, d))
+
+
+def _ln_truth(x, scale, bias, res, g, keep):
+    """f64 forward output, the LayerNorm's output y and xh, the backward
+    under the ReLU mask ``keep``, and the sums of |terms| each column sum
+    adds."""
+    x64, s64, b64 = x.double(), scale.double(), bias.double()
+    mean = x64.mean(-1, keepdim=True)
+    xh = (x64 - mean) * torch.rsqrt(((x64 - mean) ** 2).mean(-1, keepdim=True) + 1e-5)
+    y = xh * s64 + b64
+    dx, d_aff = layer_norm_relu_residual_bwd_plain(x64, g.double(), s64, b64, keep=keep)
+    gy = torch.where(keep, g.double(), 0.0)
+    mag = torch.stack([(gy * xh).abs().sum(0), gy.abs().sum(0)])
+    return torch.relu(y) + res.double(), y, xh, dx, d_aff, mag
+
+
+def _ln_layer_norm_bound(x, scale, bias, eps=1e-5):
+    """tests/test_torch_bf16_wide.py's ``layer_norm_bound`` in torch: per
+    element, twice the effect on the LayerNorm's output of rounding each of
+    the plain bf16 chain's intermediates."""
+    def ulp(t):
+        return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126))) - 7)
+
+    x, s, b = x.double(), scale.double(), bias.double()
+    mu = x.mean(-1, keepdim=True)
+    a = x - mu
+    r = 1.0 / torch.sqrt((a * a).mean(-1, keepdim=True) + eps)
+    ar, ars = a * r, a * r * s
+    out = ars + b
+    terms = (ulp(mu) / 2 * (r * s).abs() + ulp(a) / 2 * (r * s).abs()
+             + (2.0 ** -9 + 2.0 ** -8 + 2.0 ** -9 + 2.0 ** -9) * ars.abs()
+             + ulp(ar) / 2 * s.abs() + ulp(ars) / 2 + ulp(out) / 2)
+    return 2 * terms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", LN_SHAPES)
+def test_layer_norm_relu_residual_kernel(cuda, rows, d, dtype):
+    """The forward and backward entries of one dtype against the f64 formula
+    under the kernel's own ReLU mask (tight) and against the plain
+    composition under autograd (where the two masks agree); the forward and
+    the backward alike bit for bit in two calls (the recompute reproduces
+    the forward); through autograd one launch of each entry and the
+    residual's gradient the cotangent itself."""
+    bf16 = dtype == torch.bfloat16
+    tail = "_bf16" if bf16 else ""
+    x, scale, bias, res, g = _ln_case(cuda, rows, d, dtype)
+    with _launched("layer_norm_relu_residual" + tail):
+        out = layer_norm_relu_residual_fwd(x, scale, bias, res)
+    with _launched("layer_norm_relu_residual_bwd" + tail):
+        dx, d_aff = layer_norm_relu_residual_bwd(x, g, scale, bias)
+    assert out.dtype == dx.dtype == dtype and d_aff.dtype == torch.float32
+    assert torch.equal(out, layer_norm_relu_residual_fwd(x, scale, bias, res))
+    again = layer_norm_relu_residual_bwd(x, g, scale, bias)
+    assert torch.equal(dx, again[0]) and torch.equal(d_aff, again[1])
+    # with a zero residual the forward is relu(y) alone: the kernel's mask
+    keep = layer_norm_relu_residual_fwd(x, scale, bias, torch.zeros_like(res)) > 0
+    want_out, y, xh, want_dx, want_aff, mag = _ln_truth(x, scale, bias, res, g, keep)
+    o, dxd = out.double(), dx.double()
+    if bf16:
+        ulp = lambda t: _bf16_ulp(t).double()  # noqa: E731
+        assert bool(((o - want_out).abs() <= ulp(want_out) + ulp(y) + 1e-5).all())
+        assert bool(((dxd - want_dx).abs() <= ulp(want_dx) + 1e-5).all())
+    else:
+        assert bool(((o - want_out).abs() <= 1e-5 * (1 + want_out.abs())).all())
+        assert bool(((dxd - want_dx).abs() <= 1e-5 * (1 + want_dx.abs())).all())
+    assert bool(((d_aff.double() - want_aff).abs() <= 1e-5 * (1 + mag)).all())
+
+    # the plain composition under autograd
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, res)]
+    plain = layer_norm_relu_residual_plain(*leaves)
+    p_dx, p_ds, p_db, p_dr = torch.autograd.grad(plain, leaves, g)
+    assert torch.equal(p_dr, g)
+    if bf16:
+        # the plain chain rounds each step to bf16: the output within its
+        # rounding bound, the gradients within twice its own distance from
+        # the f64 formula
+        err = (o - plain.detach().double()).abs()
+        bound = _ln_layer_norm_bound(x, scale, bias) + _bf16_ulp(o).double() * 2
+        assert bool((err <= bound).all()), float((err - bound).max())
+        for got_t, p_t, w_t in ((dxd, p_dx.double(), want_dx),
+                                (d_aff[0].double(), p_ds.double(), want_aff[0]),
+                                (d_aff[1].double(), p_db.double(), want_aff[1])):
+            assert (got_t - p_t).norm() <= 2 * (p_t - w_t).norm() + 1e-3 * w_t.norm()
+    else:
+        torch.testing.assert_close(out, plain.detach(), **TOL)
+        # elements whose y the two compute on other sides of 0 (rounding of
+        # the statistics); their rows' dx and their column-sum terms apart
+        flip = keep != (masked_layer_norm(x, scale, bias) > 0)  # the plain chain's mask
+        assert int(flip.sum()) <= max(8, flip.numel() // 1_000_000), int(flip.sum())
+        rows_ok = ~flip.any(-1)
+        torch.testing.assert_close(dx[rows_ok], p_dx[rows_ok], **TOL)
+        gd = g.double()
+        slack = torch.stack([(gd * xh).abs().mul(flip).sum(0), gd.abs().mul(flip).sum(0)])
+        p_aff = torch.stack([p_ds, p_db]).double()
+        assert bool(((d_aff.double() - p_aff).abs() <= 1e-5 * (1 + mag) + slack).all())
+
+    # through autograd: one launch of each entry, d_residual is g
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, res)]
+    before = {k: v.launches for k, v in KERNELS.items()}
+    out2 = layer_norm_relu_residual(*leaves)
+    grads = torch.autograd.grad(out2, leaves, g)
+    torch.cuda.synchronize()
+    grew = {k: v.launches - before[k] for k, v in KERNELS.items() if v.launches != before[k]}
+    assert grew == {"layer_norm_relu_residual" + tail: 1,
+                    "layer_norm_relu_residual_bwd" + tail: 1}, grew
+    assert grads[3] is g
+    assert torch.equal(out2, out) and torch.equal(grads[0], dx)
+    assert torch.equal(grads[1], d_aff[0].to(dtype)) and torch.equal(grads[2], d_aff[1].to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [72, 256, 4096])
+def test_layer_norm_relu_residual_kernel_misaligned(cuda, d, dtype):
+    """Bases off 16-byte alignment load element by element the same chunks
+    the aligned call loads as 16-byte accesses: the same bits."""
+    rows = 513
+    x, scale, bias, res, g = _ln_case(cuda, rows, d, dtype)
+    assert layer_norm_plan(d, dtype).vec > 1
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+        return out
+
+    args = (x, scale, bias, res)
+    out = layer_norm_relu_residual_fwd(*args)
+    assert torch.equal(layer_norm_relu_residual_fwd(*map(shifted, args)), out)
+    dx, d_aff = layer_norm_relu_residual_bwd(x, g, scale, bias)
+    dx2, d_aff2 = layer_norm_relu_residual_bwd(*map(shifted, (x, g, scale, bias)))
+    assert torch.equal(dx2, dx) and torch.equal(d_aff2, d_aff)
