@@ -252,9 +252,10 @@ class TrainCell(Cell):
     def traced(self):
         return StepLog(self.loop, self.rec, self.dims)
 
-    def reference_readings(self, tf32: bool = False) -> dict:
+    def reference_readings(self, bits=None) -> dict:
         """The reference's first three steps from the same weights, on the
-        graphs (or the pieces' node sets) the program's steps took."""
+        graphs (or the pieces' node sets) the program's steps took; with
+        ``bits``, every product's operands rounded (the control)."""
         params = {k: v.clone() for k, v in self.theta0.items()}
         opt = ref_model.Adam(params, self.traffic["lr"])
         losses, grad1 = [], None
@@ -264,7 +265,7 @@ class TrainCell(Cell):
             else:
                 graph = self.piece_graph(self.first_pieces[k])
             loss, grads = ref_model.train_step(params, opt, graph, self.traffic["pos_weight"],
-                                               self.batch_norm, self.n_layers, tf32)
+                                               self.batch_norm, self.n_layers, bits)
             losses.append(loss)
             grad1 = grads if grad1 is None else grad1
             del graph, grads
@@ -367,12 +368,12 @@ class AssembleCell(Cell):
         the seed."""
         return self.done[random.Random(self.seed).randrange(len(self.done))]
 
-    def reference_logits(self, g: int, tf32: bool = False) -> torch.Tensor:
+    def reference_logits(self, g: int, bits=None) -> torch.Tensor:
         with np.load(ROOT / self.traffic["weights"]) as z:
             params = {flat_name(k): torch.from_numpy(z[k]).to(self.device) for k in z.files}
         with torch.no_grad():
             return ref_model.forward(params, host_graph_tensors(self.host[g], self.device),
-                                     self.batch_norm, self.n_layers, tf32, remat=False)
+                                     self.batch_norm, self.n_layers, bits, remat=False)
 
     def numbers(self, readings=None) -> dict:
         g, scores, walks = self.checked()

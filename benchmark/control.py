@@ -10,9 +10,10 @@ for ``assemble`` the scoring of one graph), then prints one JSON line:
 the program's numbers against the reference (the lower readings), and on
 the first ``--controls`` seeds the same numbers of
 
-* ``control``: the reference in TF32 (``benchmark/reference/model.py``
-  ``tf32=True``), the nearest precision below the configuration's float32,
-  put in the program's place;
+* ``control``: the reference put in the program's place with the operands
+  of every product rounded to the nearest precision below the
+  configuration's ``compute_dtype`` (``benchmark/reference/model.py``
+  ``bits``): TF32 below float32, fp8 E4M3's significand below bfloat16;
 * ``half_batch`` (training): the reference with its loss the mean over the
   first half of each graph's edges, the rest left out;
 * ``frozen`` (training): a step that leaves the parameters as they were.
@@ -52,8 +53,9 @@ def readings(cell, controls: bool) -> dict:
         out["first_gradient"] = {"sign_flips": flips, "below_1e-7": tiny, "elements": total}
     if not controls:
         return out
+    bits = ref_model.CONTROL_BITS[cell.config["compute_dtype"]]
     if hasattr(cell, "reference_readings"):
-        out["control"] = cell.numbers(cell.reference_readings(tf32=True))
+        out["control"] = cell.numbers(cell.reference_readings(bits))
         bce = ref_model.bce_loss
         ref_model.bce_loss = half_batch_loss(bce)
         try:
@@ -64,7 +66,7 @@ def readings(cell, controls: bool) -> dict:
         frozen = dict(cell.first, theta3=cell.theta0)
         out["frozen"] = cell.numbers(frozen)
     else:
-        out["control"] = cell.numbers(cell.reference_logits(cell.checked()[0], tf32=True))
+        out["control"] = cell.numbers(cell.reference_logits(cell.checked()[0], bits))
     return out
 
 

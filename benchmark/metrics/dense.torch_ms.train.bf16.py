@@ -1,0 +1,6 @@
+"""dense.torch_ms.train.bf16: ``dense.torch_ms.train`` read on the bf16 cell,
+which moves that cell's own rate, ``train_edges_per_s.bf16`` (``PERF.md``
+§2)."""
+from benchmark import metrics
+
+read = metrics.load("dense.torch_ms.train")

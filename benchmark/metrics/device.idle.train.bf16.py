@@ -1,0 +1,5 @@
+"""device.idle.train.bf16: ``device.idle.train`` read on the bf16 cell, which
+moves that cell's own rate, ``train_edges_per_s.bf16`` (``PERF.md`` §2)."""
+from benchmark import metrics
+
+read = metrics.load("device.idle.train")

@@ -12,7 +12,14 @@ through the window's own call):
 * ``change_gap``: the parameters' change over the three steps, by the worst
   leaf, the same way. Leaves whose reference gradient is under a thousandth
   of the median leaf's are left out: their exact gradient is nought (a bias
-  before a BatchNorm), and Adam moves them by round-off alone.
+  before a BatchNorm), and Adam moves them by round-off alone;
+* ``grad_cos_gap_median``: the first gradient's direction, by the median
+  leaf: ``1 - cos(g, g_ref)`` over the same leaves as ``change_gap`` (a
+  nought gradient has no direction). Norms can agree where directions do
+  not: a loss over half of the edges has a gradient of about the same
+  size. The median leaf, as a bf16 model's worst leaf (``grad_cos_gap``)
+  is whichever gradient the BatchNorm's backward nearly cancels, and swings
+  with it from seed to seed.
 
 Decoding: ``logit_gap``, the largest ``|logit - logit_ref|`` over a graph's
 edges, and ``walks_differ``, the number of contig walks that differ from
@@ -51,10 +58,15 @@ def training_numbers(prog: dict, ref: dict, theta0: dict) -> dict:
     moved = [k for k, v in g_ref.items() if v >= NOISE_LEAF * med]
     change = _gaps(_norms({k: prog["theta3"][k] - theta0[k] for k in moved}),
                    _norms({k: ref["theta3"][k] - theta0[k] for k in moved}), moved)
+    cos = {k: 1.0 - float(torch.nn.functional.cosine_similarity(
+        prog["grad1"][k].double().flatten(), ref["grad1"][k].double().flatten(), dim=0,
+        eps=1e-300)) for k in moved}
     return dict(loss_gap=max(loss_gaps), loss_gap_first=loss_gaps[0],
                 grad_gap=max(grad.values()), grad_gap_median=statistics.median(grad.values()),
                 change_gap=max(change.values()),
                 change_gap_median=statistics.median(change.values()),
+                grad_cos_gap=max(cos.values()),
+                grad_cos_gap_median=statistics.median(cos.values()),
                 grad_worst=max(grad, key=grad.get), change_worst=max(change, key=change.get))
 
 

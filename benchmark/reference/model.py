@@ -24,11 +24,14 @@ Parameters are a flat ``{name: tensor}`` with the checkpoint's names
 recomputed in the backward (``torch.utils.checkpoint``) so that a step at
 chromosome scale fits beside nothing else on one card.
 
-``tf32=True`` rounds both operands of every matrix product to TF32 (10
-mantissa bits, to nearest) and multiplies them exactly in float32, forward
-and backward: what the tensor cores do with TF32 inputs. It is the control,
-the nearest precision below float32, which the comparison has to refuse.
-This file imports nothing of the program.
+``bits=k`` rounds both operands of every matrix product to ``k`` stored
+significand bits (to nearest) and multiplies them exactly in float32,
+forward and backward: what the tensor cores do with inputs of that
+precision. ``TF32_BITS`` (10) is the control of a float32 configuration,
+the nearest precision below it; ``E4M3_BITS`` (3, fp8 E4M3's significand,
+with no limit on the exponent: an ideally scaled fp8 product) that of a
+bfloat16 one, the fp8 step below its 7. The comparison has to refuse
+both. This file imports nothing of the program.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ from torch.utils.checkpoint import checkpoint
 BN_EPS = LN_EPS = 1e-5
 AGG_EPS = 1e-6
 LINEARS = ("A1", "A2", "A3", "B1", "B2", "B3")
+TF32_BITS, E4M3_BITS = 10, 3
+# the control of each compute_dtype: the nearest precision below it
+CONTROL_BITS = {"float32": TF32_BITS, "bfloat16": E4M3_BITS}
 
 
 def exact_f32_products() -> None:
@@ -48,33 +54,35 @@ def exact_f32_products() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to the nearest TF32 value (the low 13 mantissa bits
-    cleared, half up)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+def round_significand(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """float32 rounded to the nearest value of ``bits`` stored significand
+    bits (the low ``23 - bits`` cleared, half up), the exponent as it is."""
+    drop = 23 - bits
+    raw = x.contiguous().view(torch.int32)
+    return ((raw + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
 
 
-class _TF32MatMul(torch.autograd.Function):
+class _RoundedMatMul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b):
-        a, b = round_tf32(a), round_tf32(b)
+    def forward(ctx, a, b, bits):
+        a, b = round_significand(a, bits), round_significand(b, bits)
         ctx.save_for_backward(a, b)
+        ctx.bits = bits
         return a @ b
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        g = round_tf32(g)
-        return g @ b.t(), a.t() @ g
+        g = round_significand(g, ctx.bits)
+        return g @ b.t(), a.t() @ g, None
 
 
-def _mm(a, b, tf32: bool):
-    return _TF32MatMul.apply(a, b) if tf32 else a @ b
+def _mm(a, b, bits):
+    return a @ b if bits is None else _RoundedMatMul.apply(a, b, bits)
 
 
-def _linear(p, name, x, tf32):
-    return _mm(x, p[name + ".w"], tf32) + p[name + ".b"]
+def _linear(p, name, x, bits):
+    return _mm(x, p[name + ".w"], bits) + p[name + ".b"]
 
 
 def _batch_norm(x, scale, bias):
@@ -97,11 +105,11 @@ def _gated_mean(s, rows, key, n):
     return num / (den + AGG_EPS)
 
 
-def layer(p, prefix, src, dst, h, e, batch_norm: bool, tf32: bool):
+def layer(p, prefix, src, dst, h, e, batch_norm: bool, bits):
     """One GatedGCN layer; ``src``/``dst`` int64 [E], ``h`` [N, D], ``e`` [E, D]."""
     n = h.shape[0]
-    a1h, a2h, a3h, b1h, b2h = (_linear(p, f"{prefix}.{k}", h, tf32) for k in LINEARS[:5])
-    gate = b1h[src] + b2h[dst] + _linear(p, f"{prefix}.B3", e, tf32)
+    a1h, a2h, a3h, b1h, b2h = (_linear(p, f"{prefix}.{k}", h, bits) for k in LINEARS[:5])
+    gate = b1h[src] + b2h[dst] + _linear(p, f"{prefix}.B3", e, bits)
     norm = _batch_norm if batch_norm else _layer_norm
     e_new = torch.relu(norm(gate, p[f"{prefix}.norm_e.scale"], p[f"{prefix}.norm_e.bias"])) + e
     s = torch.sigmoid(e_new)
@@ -111,25 +119,25 @@ def layer(p, prefix, src, dst, h, e, batch_norm: bool, tf32: bool):
     return torch.relu(h_new) + h, e_new
 
 
-def forward(p: dict, graph: dict, batch_norm: bool, n_layers: int, tf32: bool = False,
+def forward(p: dict, graph: dict, batch_norm: bool, n_layers: int, bits=None,
             remat: bool = True) -> torch.Tensor:
     """Logits f32[E] in the graph's edge-list order. ``graph``: ``src``,
     ``dst`` (int64 tensors), ``e_feat`` [E, 2], ``pe`` [N, PE + 2]."""
     src, dst = graph["src"], graph["dst"]
-    h = _linear(p, "linear_pe", graph["pe"], tf32)
-    e = torch.relu(_linear(p, "linear1_edge", graph["e_feat"], tf32))
-    e = _linear(p, "linear2_edge", e, tf32)
+    h = _linear(p, "linear_pe", graph["pe"], bits)
+    e = torch.relu(_linear(p, "linear1_edge", graph["e_feat"], bits))
+    e = _linear(p, "linear2_edge", e, bits)
     for i in range(n_layers):
-        args = (p, f"layers.{i}", src, dst, h, e, batch_norm, tf32)
+        args = (p, f"layers.{i}", src, dst, h, e, batch_norm, bits)
         if remat and torch.is_grad_enabled():
             h, e = checkpoint(layer, *args, use_reentrant=False)
         else:
             h, e = layer(*args)
     d = h.shape[1]
     w1 = p["score1.w"]
-    pre = (_mm(h, w1[:d], tf32)[src] + _mm(h, w1[d:2 * d], tf32)[dst]
-           + _mm(e, w1[2 * d:], tf32) + p["score1.b"])
-    return _linear(p, "score2", torch.relu(pre), tf32)[:, 0]
+    pre = (_mm(h, w1[:d], bits)[src] + _mm(h, w1[d:2 * d], bits)[dst]
+           + _mm(e, w1[2 * d:], bits) + p["score1.b"])
+    return _linear(p, "score2", torch.relu(pre), bits)[:, 0]
 
 
 def bce_loss(logits, y, pos_weight: float) -> torch.Tensor:
@@ -162,11 +170,11 @@ class Adam:
 
 
 def train_step(params: dict, opt: Adam, graph: dict, pos_weight: float,
-               batch_norm: bool, n_layers: int, tf32: bool = False):
+               batch_norm: bool, n_layers: int, bits=None):
     """One full step on ``graph`` (``y`` among its keys): the loss and the
     gradient of every leaf, after which ``params`` hold Adam's update."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = bce_loss(forward(leaves, graph, batch_norm, n_layers, tf32), graph["y"],
+    loss = bce_loss(forward(leaves, graph, batch_norm, n_layers, bits), graph["y"],
                     pos_weight)
     names = list(leaves)
     grads = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))

@@ -22,7 +22,8 @@ def small(cell):
 
 
 @pytest.mark.parametrize("cell", ["bn-f32.train-full", "ln-f32.train-full",
-                                  "bn-f32.train-cluster", "bn-f32.assemble"])
+                                  "bn-bf16.train-full", "bn-f32.train-cluster",
+                                  "bn-f32.assemble"])
 def test_traced_run_reads_its_metrics(cell, card):
     spec = small(cell)
     result = run.run_cell(spec, 2**31 + 99, 1.0, True)

@@ -10,7 +10,7 @@ import torch
 from benchmark import run
 from conftest import load_spec
 
-TRAIN = ["bn-f32.train-full", "ln-f32.train-full", "bn-f32.train-cluster"]
+TRAIN = ["bn-f32.train-full", "ln-f32.train-full", "bn-bf16.train-full", "bn-f32.train-cluster"]
 
 
 def small(cell):
@@ -31,7 +31,7 @@ def run_small(cell, seed=2**31 + 7):
 # decisions on near-zero gradient elements move the median leaf's change
 # past the limit set for pieces of 10-15k nodes.
 @pytest.mark.parametrize("cell", ["bn-f32.train-full", "ln-f32.train-full",
-                                  "bn-f32.assemble"])
+                                  "bn-bf16.train-full", "bn-f32.assemble"])
 def test_sound_run_is_correct(cell):
     result = run_small(cell)
     assert result["correct"], result["compared"]

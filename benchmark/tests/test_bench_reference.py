@@ -123,13 +123,21 @@ def test_adam_matches_torch():
 
 def test_tf32_rounding():
     x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 2**-10, 1.0 + 3 * 2**-12, -3.14159265])
-    r = model.round_tf32(x)
+    r = model.round_significand(x, model.TF32_BITS)
     assert r[0] == 1.0 and r[2] == 1.0 + 2**-10
     assert r[1] == 1.0 + 2**-10  # half way rounds up (away from zero)
     assert r[3] == 1.0 + 2**-10
     assert abs(float(r[4]) + 3.14159265) < 2**-9 * 4
     bits = r.view(torch.int32) & 0x1FFF
     assert int(bits.abs().sum()) == 0
+
+
+def test_e4m3_rounding():
+    """The bf16 cell's control: 3 stored significand bits, to nearest."""
+    x = torch.tensor([1.0, 1.0 + 2**-4, 1.0 + 3 * 2**-5, -1.2, 300.0, 1e-30])
+    r = model.round_significand(x, model.E4M3_BITS)
+    assert r.tolist()[:5] == [1.0, 1.125, 1.125, -1.25, 288.0]  # half way rounds up
+    assert int((r.view(torch.int32) & 0xFFFFF).abs().sum()) == 0
 
 
 def test_training_numbers_worst_leaf():
@@ -141,6 +149,12 @@ def test_training_numbers_worst_leaf():
     assert same["loss_gap"] == same["grad_gap"] == same["change_gap"] == 0.0
     frozen = dict(ref, theta3=theta0)
     assert compare.training_numbers(frozen, ref, theta0)["change_gap"] == 1.0  # c left out
+    assert same["grad_cos_gap"] == same["grad_cos_gap_median"] == pytest.approx(0.0, abs=1e-12)
+    turned = dict(ref, grad1=dict(ref["grad1"], b=torch.tensor([2.0, -2.0, 2.0, -2.0]),
+                                  c=-ref["grad1"]["c"]))
+    numbers = compare.training_numbers(turned, ref, theta0)
+    assert numbers["grad_cos_gap"] == 1.0  # c left out
+    assert numbers["grad_cos_gap_median"] == 0.5  # of a: 0, b: 1
 
 
 def test_decoder_on_a_chain():

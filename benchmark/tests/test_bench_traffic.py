@@ -11,8 +11,11 @@ import pytest
 from benchmark.traffic import graphs
 
 WORKLOADS = Path(__file__).resolve().parent.parent / "workloads"
+TRAIN_FULL = ["6051814637aa85b6", "1b2136f66a17bc17", "26a128bf03cfda19"]
 DIGESTS = {
-    "train-full": ["6051814637aa85b6", "1b2136f66a17bc17", "26a128bf03cfda19"],
+    "train-full": TRAIN_FULL,
+    # the same graphs; only the program's remat differs
+    "train-full-group4": TRAIN_FULL,
     "train-cluster": ["2090c4329eecde9c", "0b490fae36cc6f3c"],
     "assemble": ["ad9f07ca4d61ac9e", "f8c46df42f5e48be"],
 }
