@@ -40,6 +40,14 @@ f32, the LayerNorm and the gate's adds run in bf16, and ``h_fwd`` /
 ``h_bwd`` return to bf16, as in JAX (``gnnome_tpu/models/gated_gcn.py``).
 Dropout, as in JAX, is applied to ``h`` after the residual when a rate and
 a generator are given.
+
+Besides the ``norm`` spans of ``ops/norm.py``, two spans
+(``utils/profiling.py``) mark the layer's other parts: ``gate``, the edge
+gate's assembly up to the pre-norm ``gate`` (the gate front on the
+BatchNorm branch; the endpoint gathers, ``B3·e`` and the adds elsewhere),
+and ``aggregate``, from the σ sums to ``a1h + h_fwd + h_bwd`` (on the
+BatchNorm branch with the gate epilog, which holds ``e_new`` and the
+forward sums). Neither holds a norm.
 """
 from __future__ import annotations
 
@@ -91,26 +99,27 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
     b2h = linear(params["B2"], h)
 
     a3_dst = mom = None
-    if batch_norm and not wide_gathers:
-        gate, mom = fused_gate_front(b1h, b2h, e, params["B3"]["w"],
-                                     params["B3"]["b"], graph)
-    elif wide_gathers:
-        b3e = linear(params["B3"], e)
-        src_rows = gather_by_endpoint(torch.cat([b1h, a2h], dim=-1), graph.src,
-                                      graph.by_src)
-        if wide_gathers == "src":
-            dst_rows = gather_by_endpoint(b2h, graph.dst, graph.by_dst)
-            gate = src_rows[:, :d] + dst_rows + b3e
+    with span("gate"):
+        if batch_norm and not wide_gathers:
+            gate, mom = fused_gate_front(b1h, b2h, e, params["B3"]["w"],
+                                         params["B3"]["b"], graph)
+        elif wide_gathers:
+            b3e = linear(params["B3"], e)
+            src_rows = gather_by_endpoint(torch.cat([b1h, a2h], dim=-1), graph.src,
+                                          graph.by_src)
+            if wide_gathers == "src":
+                dst_rows = gather_by_endpoint(b2h, graph.dst, graph.by_dst)
+                gate = src_rows[:, :d] + dst_rows + b3e
+            else:
+                dst_rows = gather_by_endpoint(torch.cat([b2h, a3h], dim=-1), graph.dst,
+                                              graph.by_dst)
+                gate = src_rows[:, :d] + dst_rows[:, :d] + b3e
+                a3_dst = dst_rows[:, d:]
+            a2_src = src_rows[:, d:]
         else:
-            dst_rows = gather_by_endpoint(torch.cat([b2h, a3h], dim=-1), graph.dst,
-                                          graph.by_dst)
-            gate = src_rows[:, :d] + dst_rows[:, :d] + b3e
-            a3_dst = dst_rows[:, d:]
-        a2_src = src_rows[:, d:]
-    else:
-        gate = (gather_by_endpoint(b1h, graph.src, graph.by_src)
-                + gather_by_endpoint(b2h, graph.dst, graph.by_dst)
-                + linear(params["B3"], e))
+            gate = (gather_by_endpoint(b1h, graph.src, graph.by_src)
+                    + gather_by_endpoint(b2h, graph.dst, graph.by_dst)
+                    + linear(params["B3"], e))
 
     if batch_norm:
         with span("norm"):
@@ -125,26 +134,27 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
             scale2 = torch.rsqrt(var + 1e-5) * params["norm_e"]["scale"].to(torch.float32)
             bias2 = params["norm_e"]["bias"].to(torch.float32) - mean * scale2
             affine = torch.stack([scale2, bias2])
-        if wide_gathers:
-            sum_f, e_new = fused_gate_sigma_aggregate(gate, e_in, a2_src, affine,
-                                                      graph.by_dst)
-        else:
-            sum_f, e_new = fused_gate_sigma_gather(gate, e_in, a2h, affine, graph)
-        h_fwd = sum_f[:, :d] / (sum_f[:, d:] + eps)
     else:
         e_new = layer_norm_relu_residual(gate, params["norm_e"]["scale"],
                                          params["norm_e"]["bias"], e_in)
-        if wide_gathers:
+    with span("aggregate"):
+        if batch_norm:
+            if wide_gathers:
+                sum_f, e_new = fused_gate_sigma_aggregate(gate, e_in, a2_src, affine,
+                                                          graph.by_dst)
+            else:
+                sum_f, e_new = fused_gate_sigma_gather(gate, e_in, a2h, affine, graph)
+            h_fwd = sum_f[:, :d] / (sum_f[:, d:] + eps)
+        elif wide_gathers:
             h_fwd = gated_aggregate_pregathered(a2_src, e_new, graph.by_dst, eps)
         else:
             h_fwd = gated_aggregate(a2h, e_new, graph.src, graph.by_src, graph.by_dst,
                                     eps)
-    if a3_dst is not None:
-        h_bwd = gated_aggregate_pregathered(a3_dst, e_new, graph.by_src, eps)
-    else:
-        h_bwd = gated_mean_by_src(a3h, e_new, graph, eps)
-
-    h = a1h + h_fwd.to(h_in.dtype) + h_bwd.to(h_in.dtype)
+        if a3_dst is not None:
+            h_bwd = gated_aggregate_pregathered(a3_dst, e_new, graph.by_src, eps)
+        else:
+            h_bwd = gated_mean_by_src(a3h, e_new, graph, eps)
+        h = a1h + h_fwd.to(h_in.dtype) + h_bwd.to(h_in.dtype)
     if batch_norm:
         h = masked_batch_norm(h, graph.node_mask, params["norm_h"]["scale"],
                               params["norm_h"]["bias"])

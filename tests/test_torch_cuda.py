@@ -493,6 +493,74 @@ def test_layernorm_step_spans_hold_the_norm_kernels(cuda):
     assert out["norm_recompute"] <= 1.5 * out["norm_forward"]
 
 
+# kernels each layer span has to hold (names as the device trace gives them,
+# templated): the forward's and its backward's
+LAYER_SPAN_KERNELS = {
+    "layernorm": {"gate": ("take_rows_kernel", "segment_sum_kernel"),
+                  "aggregate": ("sigma_aggregate_gather_kernel",
+                                "sigma_aggregate_bwd_gather_kernel", "sigma_reverse_sum_kernel",
+                                "rev_bwd_kernel", "segment_sum_kernel")},
+    "batchnorm": {"gate": ("gate_front_kernel", "gate_front_bwd_kernel"),
+                  "aggregate": ("gate_sigma_gather_kernel", "epilog_bwd_kernel",
+                                "sigma_reverse_sum_kernel", "rev_bwd_kernel")},
+}
+
+
+@pytest.mark.parametrize("variant,dtype", [("layernorm", "float32"), ("layernorm", "bfloat16"),
+                                           ("batchnorm", "float32")])
+def test_layer_spans_hold_their_kernels(cuda, variant, dtype):
+    """One step of a 2-layer model (remat ``"layer"``) under the profiler,
+    each kernel put down to the program's spans as ``benchmark/spans.py``
+    puts it: the ``gate`` and ``aggregate`` spans hold their kernels, in
+    the forward, the recompute and the backward, and no LayerNorm kernel;
+    every LayerNorm kernel lies under ``norm``; no launch lies under two of
+    the three; and together they hold no more than the step's forward,
+    recompute and backward."""
+    from benchmark import spans
+    from gnnome_tpu_torch.train.loop import make_optimizer, train_step
+
+    g, rng = _graph(16, device=cuda)
+    cfg = ModelConfig(hidden_features=64, num_gnn_layers=2, nb_pos_enc=4)
+    params = init_model_params(torch.Generator().manual_seed(0), cfg, cuda)
+    opt = make_optimizer(params, 1e-3)
+    inputs = (g, _randn(rng, g.n_edges_padded, 2, device=cuda),
+              _randn(rng, g.n_nodes_padded, 6, device=cuda),
+              torch.from_numpy((rng.random(g.n_edges_padded) < 0.7).astype(np.float32)).to(cuda),
+              torch.tensor(0.5, device=cuda))
+    kw = dict(batch_norm=variant == "batchnorm", compute_dtype=dtype)
+    train_step(params, opt, *inputs, **kw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        train_step(params, opt, *inputs, **kw)
+        torch.cuda.synchronize()
+    events = prof.events()
+    calls = {e.id: e for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU and spans.CUDA_CALL.match(e.name)}
+    work = [(k, s) for k, s in spans._device_work(events) if k.id in calls]
+    kernel_of = {id(calls[k.id]): k.name for k, _ in work}
+    held = {name: {} for name in ("gate", "aggregate", "norm")}
+    training = 0.0
+    for op, seconds, phase, mods in spans.attribute(events, [(calls[k.id], s) for k, s in work]):
+        if phase not in ("forward", "recompute", "backward"):
+            continue
+        training += seconds
+        # a nested norm (BatchNorm's moments) is one span here
+        under = sorted({m[len(spans.PREFIX):] for m in mods} & set(held))
+        assert len(under) <= 1, (kernel_of[id(op)], under)
+        if "layer_norm" in kernel_of[id(op)]:
+            assert under == ["norm"], (kernel_of[id(op)], phase, under)
+        for name in under:
+            held[name].setdefault(phase, []).append((kernel_of[id(op)], seconds))
+    for name, want in LAYER_SPAN_KERNELS[variant].items():
+        assert set(held[name]) == {"forward", "recompute", "backward"}, (name, set(held[name]))
+        names = [k for launches in held[name].values() for k, _ in launches]
+        for kernel in want:
+            assert any(kernel in k for k in names), (name, kernel)
+    total = sum(s for launches in held.values() for ls in launches.values() for _, s in ls)
+    assert 0.0 < total <= training
+
+
 def test_kernels_refuse_what_they_cannot_take(cuda):
     g, rng = _graph(5, device=cuda)
     table = _randn(rng, g.n_nodes_padded, 8, device=cuda)

@@ -92,12 +92,17 @@ def test_span_tree_of_a_training_step(batch_norm, remat):
         assert len(fwd_layers) == 2
         assert len(bwd_layers) == (2 if remat == "layer" else 0)
         for layer in fwd_layers + bwd_layers:
-            # the edge and node norms; BatchNorm's moments nest in its norm
-            assert [short(c) for c in children(layer)] == ["norm", "norm"]
-    # every norm sits in a layer, directly or inside another norm
+            # the gate, the edge norm, the aggregation and the node norm;
+            # BatchNorm's moments nest in its norm
+            assert [short(c) for c in children(layer)] == ["gate", "norm", "aggregate", "norm"]
+    # every norm sits in a layer, directly or inside another norm, and
+    # neither the gate nor the aggregation holds another span
     for s in spans:
         if short(s) == "norm":
             assert short(parent[id(s)]) in ("model.layer", "norm")
+        if short(s) in ("gate", "aggregate"):
+            assert short(parent[id(s)]) == "model.layer"
+            assert not children(s)
 
 
 @pytest.mark.parametrize("batch_norm", [True, False], ids=["batchnorm", "layernorm"])
