@@ -30,7 +30,12 @@ stopped); any failure raises and exits non-zero:
              for bit in two calls. The LayerNorm row kernel
              (``csrc/layer_norm.cu``, forward and backward) runs at the
              LayerNorm model's edge and node shapes beside its plain
-             version and ``torch.nn.functional.layer_norm`` + relu + add.
+             version and ``torch.nn.functional.layer_norm`` + relu + add;
+             the BatchNorm entries (``csrc/batch_norm.cu``: the moments,
+             the apply pass, the backward's column sums and dx) at the
+             node norm's [N, 256] in f32 here and in bf16 in phase 10,
+             beside their plain versions and, for the forward,
+             ``torch.nn.functional.batch_norm(training=True)`` + relu + add.
 3. scoring — the serving path: ``score_graph`` of the 16-layer, D=256
              GatedGCN on both graphs, with the shipped BatchNorm weights
              (``pretrained/model_hardfull40.npz``) and with seeded random
@@ -534,6 +539,9 @@ def phase_parity_bf16(torch, graph, seed: int) -> list[dict]:
            f"{ulp_tol} on [E, D], {f32_tol} on d_affine/E; two calls alike",
            lambda: epilog_bwd(*args), lambda: epilog_bwd_plain(*args), None,
            (5 * e * d + 2 * er * d) * 2 + (u_dst * 2 * d + 4 * d) * 4 + e * 4, 18 * e * d)
+    # the BatchNorm model's node norm at [N, D]
+    for case in batch_norm_cases(torch, graph, gen, bf):
+        record(case[0], case[1], ulp_tol, *case[2:])
     return rows_out
 
 
@@ -766,7 +774,97 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
     for case in walk_cases(torch, graph, gen):
         err = check_walk(torch, case)
         record(case[0], err, KERNEL_TOL, *case[1:3], None, *case[3:5])
+    # the BatchNorm -> ReLU -> residual entries (no TPU kernel: XLA fuses
+    # it), the BatchNorm model's node norm at [N, D]
+    for case in batch_norm_cases(torch, graph, gen, torch.float32):
+        record(*case[:2], KERNEL_TOL, *case[2:])
     return rows_out
+
+
+def batch_norm_cases(torch, graph, gen, dtype) -> list:
+    """``(kernel, max_err, fn, plain, library, n_bytes, n_ops)`` of each of
+    the four BatchNorm -> ReLU -> residual entries of ``dtype``
+    (``csrc/batch_norm.cu``) at the node norm's shape, [N, 256] with the
+    graph's node mask, each checked against its plain version: the moments'
+    sums as means over the real rows, the output (bf16: within an ulp of
+    itself and of the BatchNorm's output, where the statistics' rounding may
+    move it), the column sums as means over every row, and dx under the
+    kernels' own ReLU mask. Plain versions: the moments as ``masked_moments``
+    sums them; the whole plain forward for the apply pass and the whole
+    backward formula for both backward passes. The library yardstick, which
+    the port never calls: ``torch.nn.functional.batch_norm(training=True)``
+    over every row (its affine in f32), then relu and the add, beside the
+    apply pass. Bounds as
+    ``benchmark/costs/batch_norm_*.py`` count them."""
+    from gnnome_tpu_torch.ops import norm
+
+    dev, bf16 = graph.device, dtype == torch.bfloat16
+    n, nr, d = graph.n_nodes_padded, graph.n_nodes, 256
+    size = 2 if bf16 else 4
+    parts = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    mask = graph.node_mask
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def close(name, got, ref):
+        if not bf16 or got.dtype == torch.float32:
+            return check_close(name, torch, got, ref, KERNEL_TOL, KERNEL_TOL)
+        return check_bf16(name, torch, got, ref)
+
+    x, res, g = randn(n, d, scale=2.0, shift=0.5), randn(n, d), randn(n, d)
+    s, b = randn(d, scale=0.5, shift=1.0), randn(d, scale=0.5)
+    sums, ref = norm.batch_norm_moments(x, mask), norm.batch_norm_moments_plain(x, mask)
+    if float(sums[0]) != float(ref[0]):
+        raise AssertionError(f"batch_norm_moments: count {float(sums[0])}, want {float(ref[0])}")
+    err = close("batch_norm_moments/N", sums[1:] / nr, ref[1:] / nr)
+    cases = [(norm.BN_MOMENTS_BF16 if bf16 else norm.BN_MOMENTS, err,
+              lambda: norm.batch_norm_moments(x, mask),
+              lambda: norm.batch_norm_moments_plain(x, mask), None, nr * d * size + n + (parts + 1) * (1 + 2 * d) * 4, 3 * nr * d)]
+    out = norm.batch_norm_apply(x, sums, s, b, res)
+    ref = norm.batch_norm_relu_residual_plain(x, mask, s, b, res)
+    if bf16:
+        y = norm.masked_batch_norm(x, mask, s, b)
+        err = (out.float() - ref.float()).abs()
+        bound = bf16_ulp(torch, torch.maximum(out.abs(), ref.abs())) + bf16_ulp(torch, y) \
+            + BF16_ATOL
+        if bool((err > bound).any()):
+            raise AssertionError(f"batch_norm_relu_residual_bf16: {int((err > bound).sum())} "
+                                 f"elements beyond the bound (max {float(err.max()):.3e})")
+        err = float(err.max())
+        del y
+    else:
+        err = close("batch_norm_relu_residual", out, ref)
+    cases.append((norm.BATCH_NORM_BF16 if bf16 else norm.BATCH_NORM, err,
+                  lambda: norm.batch_norm_apply(x, sums, s, b, res),
+                  lambda: norm.batch_norm_relu_residual_plain(x, mask, s, b, res),
+                  lambda: torch.relu(torch.nn.functional.batch_norm(
+                      x, None, None, s.float(), b.float(), True, 0.0, 1e-5)) + res,
+                  (3 * n * d + 2 * d) * size + (1 + 2 * d) * 4, 6 * n * d))
+    keep = norm.batch_norm_apply(x, sums, s, b, torch.zeros_like(res)) > 0
+    d_aff = norm.batch_norm_bwd_sums(x, g, sums, s, b)
+    ref_dx, ref_aff = norm.batch_norm_relu_residual_bwd_plain(x, g, mask, s, b, keep=keep)
+    err = close("batch_norm_relu_residual_bwd_sums/N", d_aff / n, ref_aff / n)
+    cases.append((norm.BATCH_NORM_BWD_SUMS_BF16 if bf16 else norm.BATCH_NORM_BWD_SUMS, err,
+                  lambda: norm.batch_norm_bwd_sums(x, g, sums, s, b),
+                  lambda: norm.batch_norm_relu_residual_bwd_plain(x, g, mask, s, b), None,
+                  (2 * n * d + 2 * d) * size + (1 + 2 * d + (parts + 1) * 2 * d) * 4,
+                  8 * n * d))
+    dx = norm.batch_norm_bwd_dx(x, g, mask, sums, s, b, d_aff)
+    err = close("batch_norm_relu_residual_bwd.dx", dx, ref_dx)
+    if not torch.equal(dx, norm.batch_norm_bwd_dx(x, g, mask, sums, s, b, d_aff)):
+        raise AssertionError("batch_norm_relu_residual_bwd: a second call gave other values")
+    cases.append((norm.BATCH_NORM_BWD_BF16 if bf16 else norm.BATCH_NORM_BWD, err,
+                  lambda: norm.batch_norm_bwd_dx(x, g, mask, sums, s, b, d_aff),
+                  lambda: norm.batch_norm_relu_residual_bwd_plain(x, g, mask, s, b), None,
+                  (3 * n * d + 2 * d) * size + (1 + 4 * d) * 4 + n, 12 * n * d))
+    del out, ref, keep, ref_dx, ref_aff, dx
+    pair = time_ms(torch, lambda: norm.batch_norm_relu_residual_fwd(x, mask, s, b, res))
+    pair_bwd = time_ms(torch, lambda: norm.batch_norm_relu_residual_bwd(x, g, mask, sums, s, b))
+    log(f"  batch_norm_relu_residual{'_bf16' if bf16 else ''}: the forward's two entries "
+        f"{pair:.4f} ms, the backward's two {pair_bwd:.4f} ms (each with its sums' second "
+        f"pass)")
+    return cases
 
 
 def walk_cases(torch, graph, gen) -> list:
@@ -975,20 +1073,25 @@ def phase_scoring(torch, graph, params, cfg, seed: int, variant: str,
 # kernels a GatedGCN layer launches in its forward and in its backward, by
 # model variant (models/gated_gcn.py); the gathers' backward is a segment
 # sum over the gathered endpoint's CSR
+BN_NODE_FWD = {"batch_norm_moments": 1, "batch_norm_relu_residual": 1}
+BN_NODE_BWD = {"batch_norm_relu_residual_bwd_sums": 1, "batch_norm_relu_residual_bwd": 1}
 FWD_PER_LAYER = {
-    "batchnorm": {"gate_front": 1, "gate_sigma_gather": 1, "sigma_reverse_sum": 1},
+    "batchnorm": {"gate_front": 1, "gate_sigma_gather": 1, "sigma_reverse_sum": 1,
+                  **BN_NODE_FWD},
     "layernorm": {"take_rows": 2, "sigma_aggregate_gather": 1, "sigma_reverse_sum": 1,
                   "layer_norm_relu_residual": 2},
-    "wide": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_aggregate_by_src": 1},
-    "wide_src": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_reverse_sum": 1},
+    "wide": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_aggregate_by_src": 1,
+             **BN_NODE_FWD},
+    "wide_src": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_reverse_sum": 1,
+                 **BN_NODE_FWD},
     "layernorm_wide": {"take_rows": 2, "sigma_aggregate": 1, "sigma_aggregate_by_src": 1,
                        "layer_norm_relu_residual": 2},
 }
 BWD_PER_LAYER = {
     # gate front's d_b1h / d_b2h, the epilog's d_values by src, the reverse
-    # aggregation's d_values by dst
+    # aggregation's d_values by dst; the node norm
     "batchnorm": {"gate_front_bwd": 1, "epilog_bwd": 1, "rev_bwd": 1,
-                  "segment_sum_by_dst": 2, "segment_sum_by_src": 2},
+                  "segment_sum_by_dst": 2, "segment_sum_by_src": 2, **BN_NODE_BWD},
     # the two gathers, h_fwd's d_values by src, h_bwd's by dst; the edge and
     # node norms
     "layernorm": {"sigma_aggregate_bwd_gather": 1, "rev_bwd": 1,
@@ -996,9 +1099,9 @@ BWD_PER_LAYER = {
                   "layer_norm_relu_residual_bwd": 2},
     # the two paired gathers; the pregathered halves need no segment sum
     "wide": {"epilog_bwd_pregathered": 1, "sigma_aggregate_bwd_by_src": 1,
-             "segment_sum_by_dst": 1, "segment_sum_by_src": 1},
+             "segment_sum_by_dst": 1, "segment_sum_by_src": 1, **BN_NODE_BWD},
     "wide_src": {"epilog_bwd_pregathered": 1, "rev_bwd": 1,
-                 "segment_sum_by_dst": 2, "segment_sum_by_src": 1},
+                 "segment_sum_by_dst": 2, "segment_sum_by_src": 1, **BN_NODE_BWD},
     "layernorm_wide": {"sigma_aggregate_bwd": 1, "sigma_aggregate_bwd_by_src": 1,
                        "segment_sum_by_dst": 1, "segment_sum_by_src": 1,
                        "layer_norm_relu_residual_bwd": 2},
@@ -1121,6 +1224,11 @@ PORT_KERNELS = {  # device kernel name -> the wrapper(s) that launch it
     "layer_norm_relu_residual_bwd_kernel": "layer_norm_relu_residual_bwd",
     "layer_norm_relu_residual_bwd_looped_kernel": "layer_norm_relu_residual_bwd",
     "ln_affine_reduce_kernel": "layer_norm_relu_residual_bwd",
+    "batch_norm_moments_kernel": "batch_norm_moments",
+    "batch_norm_relu_residual_kernel": "batch_norm_relu_residual",
+    "batch_norm_relu_residual_bwd_sums_kernel": "batch_norm_relu_residual_bwd_sums",
+    "batch_norm_relu_residual_bwd_kernel": "batch_norm_relu_residual_bwd",
+    "bn_partials_reduce_kernel": "batch_norm_moments / batch_norm_relu_residual_bwd_sums",
 }
 
 

@@ -177,6 +177,67 @@ __device__ __forceinline__ void load_stream(const T* p, float (&v)[VEC]) {
   load_as_f32<VEC, CS>(p, v);
 }
 
+// The norm kernels' chunks (csrc/layer_norm.cu, csrc/batch_norm.cu): VEC
+// elements at p as floats in one access where `aligned` (4 f32 or 8 bf16 in
+// 16 bytes, 4 bf16 in 8), else element by element, the same values either
+// way; `aligned` vouches for the base and the row stride.
+template <int VEC, bool CS, typename T>
+__device__ __forceinline__ void load_chunk(const T* p, bool aligned, float (&v)[VEC]) {
+  if constexpr (VEC == 4 && is_bf16<T>) {
+    if (aligned) {
+      const uint2* q = reinterpret_cast<const uint2*>(p);
+      const uint2 u = CS ? __ldcs(q) : *q;
+      v[0] = __uint_as_float(u.x << 16);
+      v[1] = __uint_as_float(u.x & 0xffff0000u);
+      v[2] = __uint_as_float(u.y << 16);
+      v[3] = __uint_as_float(u.y & 0xffff0000u);
+      return;
+    }
+  } else if constexpr (VEC > 1) {
+    if (aligned) {
+      load_as_f32<VEC, CS>(p, v);
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) v[q] = to_f32(CS ? __ldcs(p + q) : p[q]);
+}
+
+// ... and stored rounded to T with st.global.cs
+template <int VEC, typename T>
+__device__ __forceinline__ void store_chunk(T* p, bool aligned, const float (&v)[VEC]) {
+  if constexpr (VEC == 4 && is_bf16<T>) {
+    if (aligned) {
+      __stcs(reinterpret_cast<uint2*>(p), make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3])));
+      return;
+    }
+  } else if constexpr (VEC > 1) {
+    if (aligned) {
+      store_vec_cs<VEC>(p, v);
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) __stcs(p + q, from_f32<T>(v[q]));
+}
+
+// The norms' xh = (x - mean) * rstd and y = xh * scale + bias, rounded after
+// each step as PyTorch's separate operations round them and then to the
+// stored dtype T (the plain chains round the norm's output before the
+// ReLU), and the ReLU's mask as torch.relu takes it (y <= 0 gives 0; NaN
+// passes). The backward passes recompute y with these same instructions,
+// so their mask is the forward's bit for bit.
+__device__ __forceinline__ float normalize(float x, float mean, float rstd) {
+  return __fmul_rn(__fsub_rn(x, mean), rstd);
+}
+
+template <typename T>
+__device__ __forceinline__ float affine(float xh, float s, float b) {
+  return round_to<T>(bn_affine(xh, s, b));
+}
+
+__device__ __forceinline__ bool kept(float y) { return !(y <= 0.0f); }
+
 // Edge-balanced walks (csrc/epilog_bwd.cu, csrc/sigma_rows.cuh). A walker
 // is a group of 2^lanes_log2 lanes of one warp (8, 16 or 32). The positions
 // [0, n_rows) are cut into tiles of 4 consecutive positions, and walker w

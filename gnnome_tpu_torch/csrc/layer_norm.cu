@@ -63,27 +63,11 @@ __device__ __forceinline__ float group_sum(float v, int lanes) {
   return v;
 }
 
-// VEC elements at p as floats: one 16-byte access where `aligned` (and VEC
-// makes 16 bytes), else element by element; the same values either way.
-template <int VEC, bool CS, typename T>
-__device__ __forceinline__ void load_chunk(const T* p, bool aligned, float (&v)[VEC]) {
-  if (VEC > 1 && aligned) {
-    gnnome::load_as_f32<VEC, CS>(p, v);
-  } else {
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) v[q] = gnnome::to_f32(CS ? __ldcs(p + q) : p[q]);
-  }
-}
-
-template <int VEC, typename T>
-__device__ __forceinline__ void store_chunk(T* p, bool aligned, const float (&v)[VEC]) {
-  if (VEC > 1 && aligned) {
-    gnnome::store_vec_cs<VEC>(p, v);
-  } else {
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) __stcs(p + q, gnnome::from_f32<T>(v[q]));
-  }
-}
+using gnnome::affine;
+using gnnome::kept;
+using gnnome::load_chunk;
+using gnnome::normalize;
+using gnnome::store_chunk;
 
 // The row's mean and 1 / sqrt(var + eps) from the lane's partial sums:
 // sum x, then sum (x - mean)^2, over the lane's values in chunk order and
@@ -96,22 +80,6 @@ __device__ __forceinline__ void finish_stats(float sum, SumSq add_sq, int lanes,
   *mean = m;
   *rstd = rsqrtf(__fadd_rn(var, eps));
 }
-
-// xh = (x - mean) * rstd and the affine y = xh * scale + bias, rounded
-// after each step as PyTorch's separate operations round them; yb: y as
-// the stored dtype T holds it (the plain bf16 chain rounds the LayerNorm's
-// output before the ReLU)
-__device__ __forceinline__ float normalize(float x, float mean, float rstd) {
-  return __fmul_rn(__fsub_rn(x, mean), rstd);
-}
-
-template <typename T>
-__device__ __forceinline__ float affine(float xh, float s, float b) {
-  return gnnome::round_to<T>(__fadd_rn(__fmul_rn(xh, s), b));
-}
-
-// ReLU as torch.relu takes it (y <= 0 gives 0; NaN passes), and its mask
-__device__ __forceinline__ bool kept(float yb) { return !(yb <= 0.0f); }
 
 // ---------------------------------------------------------------------------
 // the register instances: a row to a group of lanes, CH chunks of VEC a lane

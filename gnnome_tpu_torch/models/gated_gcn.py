@@ -19,8 +19,10 @@ Every branch runs on kernels, following the JAX layer line by line
 
 * ``batch_norm=True`` (the shipped models): gate front (gather + B3
   product + moments), gate epilog with the forward aggregation, and the
-  reverse aggregation; the BatchNorm statistics taken from ``mom`` stay
-  plain autograd, which carries ``d_mom`` into the gate front's backward;
+  reverse aggregation; the edge BatchNorm's statistics taken from ``mom``
+  stay plain autograd, which carries ``d_mom`` into the gate front's
+  backward; the node BatchNorm with its ReLU and residual in one kernel
+  pair each way;
 * ``batch_norm=False`` (LayerNorm): the two endpoint gathers (row gather
   kernel, segment-sum backward) plus ``B3·e``, the LayerNorm with its ReLU
   and residual in one row kernel (edge and node norm alike), the forward
@@ -58,7 +60,7 @@ import torch
 from gnnome_tpu_torch.core.graph import AssemblyGraph
 from gnnome_tpu_torch.models.common import init_linear, init_norm, linear
 from gnnome_tpu_torch.ops.norm import (
-    layer_norm_relu_residual, masked_batch_norm, masked_moments)
+    batch_norm_relu_residual, layer_norm_relu_residual, masked_moments)
 from gnnome_tpu_torch.ops.segment import (
     fused_gate_front,
     fused_gate_sigma_aggregate,
@@ -156,9 +158,8 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
             h_bwd = gated_mean_by_src(a3h, e_new, graph, eps)
         h = a1h + h_fwd.to(h_in.dtype) + h_bwd.to(h_in.dtype)
     if batch_norm:
-        h = masked_batch_norm(h, graph.node_mask, params["norm_h"]["scale"],
-                              params["norm_h"]["bias"])
-        h = torch.relu(h) + h_in
+        h = batch_norm_relu_residual(h, graph.node_mask, params["norm_h"]["scale"],
+                                     params["norm_h"]["bias"], h_in)
     else:
         h = layer_norm_relu_residual(h, params["norm_h"]["scale"], params["norm_h"]["bias"],
                                      h_in)

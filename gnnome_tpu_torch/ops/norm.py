@@ -10,15 +10,18 @@ group takes the place of JAX's ``axis_name``: the count, Σx and Σx² are
 all-reduced over it in f32 (one differentiable all-reduce), so every rank
 sees the statistics of the whole row set.
 
-The LayerNorm branch takes its norm with the ReLU and the residual add
-that follow it as one function, :func:`layer_norm_relu_residual`
-(``relu(LN(x)·scale + bias) + residual``). On the card it runs the row
-kernel of ``csrc/layer_norm.cu``, forward and backward; on CPU tensors, the
-plain composition. The JAX package has no kernel here (XLA fuses its
-``masked_layer_norm``, ``gnnome_tpu/ops/norm.py:58``, with what surrounds it).
+Each node norm takes its ReLU and the residual add that follow it as one
+function: :func:`layer_norm_relu_residual` (``relu(LN(x)·scale + bias) +
+residual``, the LayerNorm branch's edge norm too) and
+:func:`batch_norm_relu_residual` (``relu(masked_batch_norm(x)) +
+residual``). On the card they run the kernels of ``csrc/layer_norm.cu`` and
+``csrc/batch_norm.cu``, forward and backward; on CPU tensors, the plain
+composition. The JAX package has no kernel here (XLA fuses its
+``masked_layer_norm`` and ``masked_batch_norm``, ``gnnome_tpu/ops/norm.py:58``
+and ``:43``, with what surrounds them).
 
 Each function runs inside a ``norm`` span (``utils/profiling.py``), the
-LayerNorm's backward too.
+backwards of the two fused ones too.
 """
 from __future__ import annotations
 
@@ -234,3 +237,260 @@ def layer_norm_relu_residual(x, scale, bias, residual, eps: float = 1e-5):
         if on_cpu(x, scale, bias, residual):
             return layer_norm_relu_residual_plain(x, scale, bias, residual, eps)
         return LayerNormReluResidual.apply(x, scale, bias, residual, eps)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm -> ReLU -> residual
+# ---------------------------------------------------------------------------
+
+_BN_PLAN = [I32, I32, I32, I32]  # vec, lanes_log2, chunks, aligned
+
+
+def _bn_entries(name: str, argtypes) -> tuple:
+    """The f32 and bf16 entries ``name`` and ``name_bf16`` of
+    ``csrc/batch_norm.cu``."""
+    return tuple(register(Kernel(
+        name + tail, f"gnnome_{name}_{sym}", argtypes,
+        source="gnnome_tpu_torch/csrc/batch_norm.cu",
+        replaces="none: XLA fuses gnnome_tpu/ops/norm.py:43 masked_batch_norm", dtype=dtype))
+        for tail, sym, dtype in (("", "f32", torch.float32), ("_bf16", "bf16", torch.bfloat16)))
+
+
+BN_MOMENTS, BN_MOMENTS_BF16 = _bn_entries("batch_norm_moments",
+                                          [P, P, P, P, I64, I32, *_BN_PLAN, I32])
+BATCH_NORM, BATCH_NORM_BF16 = _bn_entries("batch_norm_relu_residual",
+                                          [P, P, P, P, P, P, I64, I32, F32, *_BN_PLAN])
+BATCH_NORM_BWD_SUMS, BATCH_NORM_BWD_SUMS_BF16 = _bn_entries(
+    "batch_norm_relu_residual_bwd_sums", [P, P, P, P, P, P, P, I64, I32, F32, *_BN_PLAN, I32])
+BATCH_NORM_BWD, BATCH_NORM_BWD_BF16 = _bn_entries(
+    "batch_norm_relu_residual_bwd", [P, P, P, P, P, P, P, P, I64, I32, F32, *_BN_PLAN])
+
+# threads of a block of csrc/batch_norm.cu; at most this many values of a
+# row a lane (the chunks of a lane times their elements)
+BN_THREADS = 256
+BN_VALUES_PER_LANE = 16
+# partial rows of the column sums: at most 8 blocks an SM
+_BN_BLOCKS_PER_SM = 8
+
+
+class BatchNormPlan(NamedTuple):
+    """How ``csrc/batch_norm.cu`` lays out the columns of a row of ``d``
+    elements: chunks of ``vec`` elements (4 where ``d`` is a multiple of 4:
+    16-byte accesses in f32, 8-byte in bf16; else 1), a group of
+    ``2**lanes_log2`` lanes a row (1 to 256: :data:`BN_THREADS` / lanes
+    rows of a block at once), and
+    ``chunks`` chunks a lane (1, 2 or 4, at most :data:`BN_VALUES_PER_LANE`
+    values), lane ``l`` holding chunks ``l``, ``l + lanes``, ... of its
+    column tile. Rows wider than a tile (``lanes·chunks`` chunks) take
+    several tiles, one a block column. From ``d`` alone, so forward,
+    recompute and backward sum in one order."""
+    vec: int
+    lanes_log2: int
+    chunks: int
+
+
+def batch_norm_plan(d: int) -> BatchNormPlan:
+    if d < 1:
+        raise ValueError(f"batch_norm_relu_residual: no plan for rows of {d}")
+    vec = 4 if d % 4 == 0 else 1
+    per_row = d // vec
+    lanes_log2 = 0
+    while (1 << lanes_log2) < min(per_row, BN_THREADS):
+        lanes_log2 += 1
+    fits = [c for c in (1, 2, 4) if c * vec <= BN_VALUES_PER_LANE]
+    chunks = next((c for c in fits if c << lanes_log2 >= per_row), fits[-1])
+    return BatchNormPlan(vec, lanes_log2, chunks)
+
+
+def batch_norm_relu_residual_plain(x, mask, scale, bias, residual, eps: float = 1e-5,
+                                   group=None):
+    return torch.relu(masked_batch_norm(x, mask, scale, bias, eps, group)) + residual
+
+
+def batch_norm_moments_plain(x, mask, group=None):
+    """``[count, Σx·m, Σx²·m]`` in f32 over the rows where ``mask`` (of
+    every rank of ``group``), as :func:`masked_moments` sums them."""
+    x = x.to(torch.float32)
+    m = mask.to(torch.float32)[:, None]
+    return all_reduce_sum(torch.cat([m.sum()[None], (x * m).sum(0), (x * x * m).sum(0)]),
+                          group)
+
+
+def batch_norm_relu_residual_bwd_plain(x, g, mask, scale, bias, eps: float = 1e-5,
+                                       keep=None):
+    """The kernels' backward formula, op by op: ``(dx, [d_scale, d_bias])``
+    with the statistics of the rows where ``mask`` (n of them, mean, var),
+    ``xh = (x - mean)·rstd``, ``gy = g·keep``, ``d_scale = Σ gy·xh`` and
+    ``d_bias = Σ gy`` over every row (padded rows too), ``A = scale·d_bias``,
+    ``B = scale·d_scale`` (0 where the variance was clamped at 0) and
+    ``dx = rstd·(gy·scale) − m·(rstd/n)·(A + xh·B)``. ``keep``: the ReLU's
+    mask, by default ``BN(x)·scale + bias > 0`` as x's dtype holds it.
+    Computed in f32 (f64 for f64 inputs); dx returned in x's dtype."""
+    dtype = x.dtype
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    x, g, scale, bias = (t.to(wide) for t in (x, g, scale, bias))
+    m = mask.to(wide)[:, None]
+    n = torch.clamp(m.sum(), min=1.0)
+    mean = (x * m).sum(0) / n
+    var_raw = (x * x * m).sum(0) / n - mean * mean
+    rstd = torch.rsqrt(torch.clamp(var_raw, min=0.0) + eps)
+    xh = (x - mean) * rstd
+    if keep is None:
+        keep = ~((xh * scale + bias).to(dtype) <= 0)
+    gy = torch.where(keep, g, 0.0)
+    d_scale, d_bias = (gy * xh).sum(0), gy.sum(0)
+    a = scale * d_bias
+    b = torch.where(var_raw < 0, 0.0, scale * d_scale)
+    dx = rstd * (gy * scale) - m * (rstd / n) * (a + xh * b)
+    return dx.to(dtype), torch.stack([d_scale, d_bias])
+
+
+def _check_bn_args(kernel, x, mask, floats, f32):
+    check_cuda_args(kernel.name, [x, *floats], [], dtype=kernel.dtype, f32=f32)
+    n_rows, d = x.shape
+    if any(t.shape != x.shape for t in floats if t.dim() == 2) or any(
+            t.shape != (d,) for t in floats if t.dim() == 1):
+        raise ValueError(f"{kernel.name}: shape mismatch")
+    if mask.dtype != torch.bool or mask.shape != (n_rows,) or not mask.is_contiguous():
+        raise ValueError(f"{kernel.name}: needs a contiguous bool mask of {n_rows} rows")
+
+
+def _bn_max_parts(x) -> int:
+    return _BN_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        x.device).multi_processor_count
+
+
+# the four entries, one launch each (CUDA tensors, checked by the callers)
+
+
+def batch_norm_moments(x, mask):
+    """``[count | Σx·m | Σx²·m]`` (f32 [1 + 2D]) over the rows of ``x``
+    where ``mask``: the forward's first kernel."""
+    kernel = entry(x.dtype, BN_MOMENTS, BN_MOMENTS_BF16)
+    n_rows, d = x.shape
+    max_parts = _bn_max_parts(x)
+    partial = torch.empty((max_parts, 1 + 2 * d), dtype=torch.float32, device=x.device)
+    sums = torch.empty(1 + 2 * d, dtype=torch.float32, device=x.device)
+    kernel(x.device, x.data_ptr(), mask.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+           n_rows, d, *batch_norm_plan(d), int(_aligned(x)), max_parts)
+    return sums
+
+
+def batch_norm_apply(x, sums, scale, bias, residual, eps: float = 1e-5):
+    """``relu(BN(x)·scale + bias) + residual`` over every row, the statistics
+    from ``sums``: the forward's second kernel."""
+    kernel = entry(x.dtype, BATCH_NORM, BATCH_NORM_BF16)
+    n_rows, d = x.shape
+    out = torch.empty_like(x)
+    kernel(x.device, x.data_ptr(), sums.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+           residual.data_ptr(), out.data_ptr(), n_rows, d, eps, *batch_norm_plan(d),
+           int(_aligned(x, scale, bias, residual, out)))
+    return out
+
+
+def batch_norm_bwd_sums(x, g, sums, scale, bias, eps: float = 1e-5):
+    """``[Σ gy·xh | Σ gy]`` (f32 [2, D]) over every row: the backward's
+    first kernel."""
+    kernel = entry(x.dtype, BATCH_NORM_BWD_SUMS, BATCH_NORM_BWD_SUMS_BF16)
+    n_rows, d = x.shape
+    max_parts = _bn_max_parts(x)
+    partial = torch.empty((max_parts, 2 * d), dtype=torch.float32, device=x.device)
+    d_affine = torch.empty((2, d), dtype=torch.float32, device=x.device)
+    kernel(x.device, x.data_ptr(), g.data_ptr(), sums.data_ptr(), scale.data_ptr(),
+           bias.data_ptr(), partial.data_ptr(), d_affine.data_ptr(), n_rows, d, eps,
+           *batch_norm_plan(d), int(_aligned(x, g, scale, bias)), max_parts)
+    return d_affine
+
+
+def batch_norm_bwd_dx(x, g, mask, sums, scale, bias, total, eps: float = 1e-5):
+    """dx over every row from the column sums ``total`` (all-reduced where
+    the rows are sharded): the backward's second kernel."""
+    kernel = entry(x.dtype, BATCH_NORM_BWD, BATCH_NORM_BWD_BF16)
+    n_rows, d = x.shape
+    dx = torch.empty_like(x)
+    kernel(x.device, x.data_ptr(), g.data_ptr(), mask.data_ptr(), sums.data_ptr(),
+           scale.data_ptr(), bias.data_ptr(), total.data_ptr(), dx.data_ptr(), n_rows, d, eps,
+           *batch_norm_plan(d), int(_aligned(x, g, scale, bias, dx)))
+    return dx
+
+
+def batch_norm_relu_residual_fwd(x, mask, scale, bias, residual, eps: float = 1e-5,
+                                 group=None):
+    """``(out, sums)``: ``out = relu(masked_batch_norm(x, mask, scale, bias)) +
+    residual`` over the rows of ``x`` ([R, D]; mask bool [R]; scale, bias
+    [D]; residual [R, D]; all float32 or all bfloat16) with no gradient, and
+    ``sums = [count, Σx·m, Σx²·m]`` (f32 [1 + 2D], all-reduced over
+    ``group``), from which the statistics come. On the card two kernels:
+    the column sums over the real rows (the all-reduce between the two
+    launches where ``group`` is given), then the normalisation, the ReLU and
+    the residual; on the CPU the plain composition. bf16 runs in f32 and
+    rounds where the plain bf16 chain's output rounds: the BatchNorm's
+    output, then the sum with the residual."""
+    if on_cpu(x, mask, scale, bias, residual):
+        return (batch_norm_relu_residual_plain(x, mask, scale, bias, residual, eps, group),
+                batch_norm_moments_plain(x, mask, group))
+    kernel = entry(x.dtype, BATCH_NORM, BATCH_NORM_BF16)
+    _check_bn_args(kernel, x, mask, [scale, bias, residual], [])
+    sums = all_reduce_sum(batch_norm_moments(x, mask), group)
+    return batch_norm_apply(x, sums, scale, bias, residual, eps), sums
+
+
+def batch_norm_relu_residual_bwd(x, g, mask, sums, scale, bias, eps: float = 1e-5,
+                                 group=None):
+    """``(dx, d_affine)``: the gradient of :func:`batch_norm_relu_residual_fwd`
+    for the cotangent ``g`` with respect to x (x's dtype) and ``[d_scale,
+    d_bias]`` (f32 [2, D], this rank's rows summed in a fixed order), from
+    the forward's ``sums``. On the card two kernels: the column sums, whose
+    copy is all-reduced over ``group`` where one is given, then dx; each
+    recomputes the normalisation and the ReLU mask as the forward computes
+    them. On the CPU, :func:`batch_norm_relu_residual_bwd_plain` (one
+    process: ``group`` must be None)."""
+    if on_cpu(x, g, mask, sums, scale, bias):
+        if group is not None:
+            raise ValueError("batch_norm_relu_residual_bwd: no process group on the CPU")
+        return batch_norm_relu_residual_bwd_plain(x, g, mask, scale, bias, eps)
+    kernel = entry(x.dtype, BATCH_NORM_BWD, BATCH_NORM_BWD_BF16)
+    _check_bn_args(kernel, x, mask, [g, scale, bias], [sums])
+    d = x.shape[1]
+    if sums.shape != (1 + 2 * d,):
+        raise ValueError(f"{kernel.name}: sums of {tuple(sums.shape)}, want ({1 + 2 * d},)")
+    d_affine = batch_norm_bwd_sums(x, g, sums, scale, bias, eps)
+    total = all_reduce_sum(d_affine, group)
+    return batch_norm_bwd_dx(x, g, mask, sums, scale, bias, total, eps), d_affine
+
+
+class BatchNormReluResidual(torch.autograd.Function):
+    """:func:`batch_norm_relu_residual_fwd` with the kernels' backward.
+    Saves x, the mask, scale, bias and the f32 sums only (no [R, D]
+    intermediate); the residual's gradient is the cotangent itself."""
+
+    @staticmethod
+    def forward(ctx, x, mask, scale, bias, residual, eps: float, group):
+        out, sums = batch_norm_relu_residual_fwd(x, mask, scale, bias, residual, eps, group)
+        ctx.save_for_backward(x, mask, scale, bias, sums)
+        ctx.eps, ctx.group = eps, group
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # outside the span: under remat the first read of a saved tensor of
+        # the layer runs the layer's recompute, which is not the norm's
+        x, mask, scale, bias, sums = ctx.saved_tensors
+        with span("norm"):
+            dx, d_affine = batch_norm_relu_residual_bwd(x, g.contiguous(), mask, sums, scale,
+                                                        bias, ctx.eps, ctx.group)
+            return (dx, None, d_affine[0].to(scale.dtype), d_affine[1].to(bias.dtype), g,
+                    None, None)
+
+
+def batch_norm_relu_residual(x, mask, scale, bias, residual, eps: float = 1e-5, group=None):
+    """``relu(masked_batch_norm(x, mask, scale, bias)) + residual``,
+    differentiable: the BatchNorm branch's node norm with its ReLU and
+    residual (``models/gated_gcn.py``, ``parallel/sharded.py``); ``group``:
+    the process group the rows are sharded over. On the card the
+    ``csrc/batch_norm.cu`` entries of x's dtype, forward and backward; on
+    CPU tensors the plain composition under autograd."""
+    with span("norm"):
+        if on_cpu(x, mask, scale, bias, residual):
+            return batch_norm_relu_residual_plain(x, mask, scale, bias, residual, eps, group)
+        return BatchNormReluResidual.apply(x, mask, scale, bias, residual, eps, group)

@@ -69,7 +69,7 @@ from gnnome_tpu_torch.models.model import (
 from gnnome_tpu_torch.ops.dense import matmul
 from gnnome_tpu_torch.ops.gate_epilog import GateSigmaGather
 from gnnome_tpu_torch.ops.gate_front import GateFront
-from gnnome_tpu_torch.ops.norm import layer_norm_relu_residual, masked_batch_norm
+from gnnome_tpu_torch.ops.norm import batch_norm_relu_residual, layer_norm_relu_residual
 from gnnome_tpu_torch.ops.reverse_sum import SigmaReverseSum
 from gnnome_tpu_torch.ops.segment import _mean
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
@@ -497,9 +497,8 @@ def _sharded_gated_gcn_layer(lp: Dict, h: torch.Tensor, e: torch.Tensor,
 
     h = a1h + h_fwd.to(h_in.dtype) + h_bwd.to(h_in.dtype)
     if batch_norm:
-        h = masked_batch_norm(h, shard.node_mask, lp["norm_h"]["scale"],
-                              lp["norm_h"]["bias"], group=mesh.graph_group)
-        h = torch.relu(h) + h_in
+        h = batch_norm_relu_residual(h, shard.node_mask, lp["norm_h"]["scale"],
+                                     lp["norm_h"]["bias"], h_in, group=mesh.graph_group)
     else:
         h = layer_norm_relu_residual(h, lp["norm_h"]["scale"], lp["norm_h"]["bias"], h_in)
     return h, e_new

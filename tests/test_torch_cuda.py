@@ -40,7 +40,10 @@ from gnnome_tpu_torch.ops.gate_epilog import (
 from gnnome_tpu_torch.ops.gate_front import (
     _gate_front_bf16, gate_front, gate_front_bwd, gate_front_bwd_plain, gate_front_plain)
 from gnnome_tpu_torch.ops.norm import (
-    layer_norm_plan, layer_norm_relu_residual, masked_layer_norm, layer_norm_relu_residual_bwd,
+    batch_norm_plan, batch_norm_relu_residual, batch_norm_relu_residual_bwd,
+    batch_norm_relu_residual_bwd_plain, batch_norm_relu_residual_fwd,
+    batch_norm_relu_residual_plain, layer_norm_plan, layer_norm_relu_residual,
+    masked_batch_norm, masked_layer_norm, layer_norm_relu_residual_bwd,
     layer_norm_relu_residual_bwd_plain, layer_norm_relu_residual_fwd,
     layer_norm_relu_residual_plain)
 from gnnome_tpu_torch.ops.reverse_sum import (
@@ -362,21 +365,25 @@ def test_edge_walks_on_padded_tail_and_hub(cuda, shape, entry, d):
 
 
 # launches of one 2-layer autograd step under remat="layer" (forward twice;
-# the LayerNorm's entry twice a layer forward: the edge and the node norm)
+# the LayerNorm's entry twice a layer forward: the edge and the node norm;
+# the BatchNorm's two forward and two backward entries once a layer each:
+# the node norm)
+BN_NODE_NORM = {"batch_norm_moments": 4, "batch_norm_relu_residual": 4,
+                "batch_norm_relu_residual_bwd_sums": 2, "batch_norm_relu_residual_bwd": 2}
 STEP_LAUNCHES = {
     "batchnorm": {"take_rows": 2, "gate_front": 4, "gate_sigma_gather": 4,
                   "sigma_reverse_sum": 4, "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
-                  "gate_front_bwd": 2, "epilog_bwd": 2, "rev_bwd": 2},
+                  "gate_front_bwd": 2, "epilog_bwd": 2, "rev_bwd": 2, **BN_NODE_NORM},
     "layernorm": {"take_rows": 10, "sigma_aggregate_gather": 4, "sigma_reverse_sum": 4,
                   "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
                   "sigma_aggregate_bwd_gather": 2, "rev_bwd": 2,
                   "layer_norm_relu_residual": 8, "layer_norm_relu_residual_bwd": 4},
     "wide": {"take_rows": 10, "gate_sigma_aggregate": 4, "sigma_aggregate_by_src": 4,
              "segment_sum_by_dst": 3, "segment_sum_by_src": 3, "epilog_bwd_pregathered": 2,
-             "sigma_aggregate_bwd_by_src": 2},
+             "sigma_aggregate_bwd_by_src": 2, **BN_NODE_NORM},
     "wide_src": {"take_rows": 10, "gate_sigma_aggregate": 4, "sigma_reverse_sum": 4,
                  "segment_sum_by_dst": 5, "segment_sum_by_src": 3,
-                 "epilog_bwd_pregathered": 2, "rev_bwd": 2},
+                 "epilog_bwd_pregathered": 2, "rev_bwd": 2, **BN_NODE_NORM},
     "layernorm_wide": {"take_rows": 10, "sigma_aggregate": 4, "sigma_aggregate_by_src": 4,
                        "segment_sum_by_dst": 3, "segment_sum_by_src": 3,
                        "sigma_aggregate_bwd": 2, "sigma_aggregate_bwd_by_src": 2,
@@ -512,8 +519,8 @@ def test_layer_spans_hold_their_kernels(cuda, variant, dtype):
     """One step of a 2-layer model (remat ``"layer"``) under the profiler,
     each kernel put down to the program's spans as ``benchmark/spans.py``
     puts it: the ``gate`` and ``aggregate`` spans hold their kernels, in
-    the forward, the recompute and the backward, and no LayerNorm kernel;
-    every LayerNorm kernel lies under ``norm``; no launch lies under two of
+    the forward, the recompute and the backward, and no norm kernel;
+    every LayerNorm and BatchNorm kernel lies under ``norm``; no launch lies under two of
     the three; and together they hold no more than the step's forward,
     recompute and backward."""
     from benchmark import spans
@@ -548,7 +555,7 @@ def test_layer_spans_hold_their_kernels(cuda, variant, dtype):
         # a nested norm (BatchNorm's moments) is one span here
         under = sorted({m[len(spans.PREFIX):] for m in mods} & set(held))
         assert len(under) <= 1, (kernel_of[id(op)], under)
-        if "layer_norm" in kernel_of[id(op)]:
+        if "layer_norm" in kernel_of[id(op)] or "batch_norm" in kernel_of[id(op)]:
             assert under == ["norm"], (kernel_of[id(op)], phase, under)
         for name in under:
             held[name].setdefault(phase, []).append((kernel_of[id(op)], seconds))
@@ -575,6 +582,25 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         layer_norm_relu_residual_fwd(table, sb, sb, table.bfloat16())  # one dtype for all
     with pytest.raises(ValueError):
         layer_norm_relu_residual_bwd(table, table[:, :4].contiguous(), sb, sb)
+    mask = g.node_mask
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_fwd(table.double(), mask, sb.double(), sb.double(),
+                                     table.double())
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_fwd(table, mask, sb, sb, table.bfloat16())  # one dtype
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_fwd(table, mask.to(torch.uint8), sb, sb, table)  # bool mask
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_fwd(table, mask[:-1], sb, sb, table)  # a mask a row
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_fwd(table, mask.cpu(), sb, sb, table)  # mixed devices
+    _, sums = batch_norm_relu_residual_fwd(table, mask, sb, sb, table)
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_bwd(table, table[:, :4].contiguous(), mask, sums, sb, sb)
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_bwd(table, table, mask, sums[1:], sb, sb)  # [1 + 2D] sums
+    with pytest.raises(ValueError):
+        batch_norm_relu_residual_bwd(table, table, mask, sums.double(), sb, sb)  # f32 sums
 
 
 # ---------------------------------------------------------------------------
@@ -762,7 +788,11 @@ def test_bf16_model_step_runs_the_bf16_entries(cuda):
                         "sigma_reverse_sum_bf16": 2 * layers, "gate_front_bwd_bf16": layers,
                         "epilog_bwd_bf16": layers, "rev_bwd_bf16": layers,
                         "segment_sum_by_dst_bf16": 2 * layers + 1,
-                        "segment_sum_by_src_bf16": 2 * layers + 1}, launches
+                        "segment_sum_by_src_bf16": 2 * layers + 1,
+                        "batch_norm_moments_bf16": 2 * layers,
+                        "batch_norm_relu_residual_bf16": 2 * layers,
+                        "batch_norm_relu_residual_bwd_sums_bf16": layers,
+                        "batch_norm_relu_residual_bwd_bf16": layers}, launches
     assert logits.dtype == torch.float32
     assert all(v.grad.dtype == torch.float32 and bool(torch.isfinite(v.grad).all())
                for v in leaves.values())
@@ -1495,4 +1525,158 @@ def test_layer_norm_relu_residual_kernel_misaligned(cuda, d, dtype):
     assert torch.equal(layer_norm_relu_residual_fwd(*map(shifted, args)), out)
     dx, d_aff = layer_norm_relu_residual_bwd(x, g, scale, bias)
     dx2, d_aff2 = layer_norm_relu_residual_bwd(*map(shifted, (x, g, scale, bias)))
+    assert torch.equal(dx2, dx) and torch.equal(d_aff2, d_aff)
+
+
+# ---------------------------------------------------------------------------
+# the BatchNorm -> ReLU -> residual kernels (csrc/batch_norm.cu)
+# ---------------------------------------------------------------------------
+
+# (rows, D, mask): the node norm's full size, padded to 128 rows as
+# node_pad_multiple pads it; the tests' small and ragged widths (16-byte
+# rows of 2, 18 and 66 chunks; D = 6 of single elements), with a mask that
+# is not a prefix; two column tiles (D = 1100 of single elements, D = 4104
+# of 16-byte chunks)
+BN_SHAPES = [(150_016, 256, "trailing"), (999, 8, "scattered"), (999, 72, "scattered"),
+             (999, 264, "trailing"), (333, 6, "scattered"), (257, 1100, "scattered"),
+             (65, 4104, "trailing")]
+
+
+def _bn_mask(rows, kind, device):
+    if kind == "trailing":
+        keep = np.arange(rows) < rows - (16 if rows > 1000 else rows // 4)
+    else:
+        keep = np.ones(rows, dtype=bool)
+        keep[::3] = False
+        keep[-10:] = False
+    return torch.from_numpy(keep).to(device)
+
+
+def _bn_truth(x, mask, scale, bias, res, g, keep):
+    """f64 forward output, the BatchNorm's output y and xh, the backward
+    under the ReLU mask ``keep``, and the sums of |terms| each column sum
+    adds."""
+    x64, s64, b64 = x.double(), scale.double(), bias.double()
+    m = mask.double()[:, None]
+    n = m.sum().clamp(min=1.0)
+    mean = (x64 * m).sum(0) / n
+    var = ((x64 * x64 * m).sum(0) / n - mean * mean).clamp(min=0.0)
+    xh = (x64 - mean) * torch.rsqrt(var + 1e-5)
+    y = xh * s64 + b64
+    dx, d_aff = batch_norm_relu_residual_bwd_plain(x64, g.double(), mask, s64, b64, keep=keep)
+    gy = torch.where(keep, g.double(), 0.0)
+    mag = torch.stack([(gy * xh).abs().sum(0), gy.abs().sum(0)])
+    return torch.relu(y) + res.double(), y, xh, dx, d_aff, mag
+
+
+BN_ENTRIES = ("batch_norm_moments", "batch_norm_relu_residual",
+              "batch_norm_relu_residual_bwd_sums", "batch_norm_relu_residual_bwd")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,kind", BN_SHAPES)
+def test_batch_norm_relu_residual_kernel(cuda, rows, d, kind, dtype):
+    """The forward and backward entries of one dtype against the f64 formula
+    under the kernels' own ReLU mask (tight) and against the plain
+    composition under autograd (where the two masks agree); the forward
+    and the backward alike bit for bit in two calls (the recompute
+    reproduces the forward); through autograd one launch of each entry and
+    the residual's gradient the cotangent itself."""
+    bf16 = dtype == torch.bfloat16
+    tail = "_bf16" if bf16 else ""
+    x, scale, bias, res, g = _ln_case(cuda, rows, d, dtype)
+    mask = _bn_mask(rows, kind, cuda)
+    before = {k: v.launches for k, v in KERNELS.items()}
+    out, sums = batch_norm_relu_residual_fwd(x, mask, scale, bias, res)
+    dx, d_aff = batch_norm_relu_residual_bwd(x, g, mask, sums, scale, bias)
+    torch.cuda.synchronize()
+    grew = {k: v.launches - before[k] for k, v in KERNELS.items() if v.launches != before[k]}
+    assert grew == {k + tail: 1 for k in BN_ENTRIES}, grew
+    assert out.dtype == dx.dtype == dtype and sums.dtype == d_aff.dtype == torch.float32
+    again, sums2 = batch_norm_relu_residual_fwd(x, mask, scale, bias, res)
+    assert torch.equal(out, again) and torch.equal(sums, sums2)
+    dx2, d_aff2 = batch_norm_relu_residual_bwd(x, g, mask, sums, scale, bias)
+    assert torch.equal(dx, dx2) and torch.equal(d_aff, d_aff2)
+    # the sums: the count exactly, the column sums of the real rows
+    real = x[mask].double()
+    assert float(sums[0]) == float(mask.sum())
+    col_mag = real.abs().sum(0)
+    assert bool(((sums[1:1 + d].double() - real.sum(0)).abs() <= 1e-5 * (1 + col_mag)).all())
+    assert bool(((sums[1 + d:].double() - (real * real).sum(0)).abs()
+                 <= 1e-5 * (1 + (real * real).sum(0))).all())
+    # with a zero residual the forward is relu(y) alone: the kernels' mask
+    keep = batch_norm_relu_residual_fwd(x, mask, scale, bias, torch.zeros_like(res))[0] > 0
+    want_out, y, xh, want_dx, want_aff, mag = _bn_truth(x, mask, scale, bias, res, g, keep)
+    o, dxd = out.double(), dx.double()
+    if bf16:
+        ulp = lambda t: _bf16_ulp(t).double()  # noqa: E731
+        assert bool(((o - want_out).abs() <= ulp(want_out) + ulp(y) + 1e-5).all())
+        assert bool(((dxd - want_dx).abs() <= ulp(want_dx) + 1e-5).all())
+    else:
+        assert bool(((o - want_out).abs() <= 1e-5 * (1 + want_out.abs())).all())
+        assert bool(((dxd - want_dx).abs() <= 1e-5 * (1 + want_dx.abs())).all())
+    assert bool(((d_aff.double() - want_aff).abs() <= 1e-5 * (1 + mag)).all())
+
+    # the plain composition under autograd
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, res)]
+    plain = batch_norm_relu_residual_plain(leaves[0], mask, *leaves[1:])
+    p_dx, p_ds, p_db, p_dr = torch.autograd.grad(plain, leaves, g)
+    assert torch.equal(p_dr, g)
+    if bf16:
+        # the plain chain rounds where the kernels round (the BatchNorm's
+        # output, then the sum): within an ulp of each; the gradients within
+        # twice its own distance from the f64 formula
+        _assert_bf16_close(out, plain.detach(), atol=1e-5 + float(ulp(y).max()))
+        for got_t, p_t, w_t in ((dxd, p_dx.double(), want_dx),
+                                (d_aff[0].double(), p_ds.double(), want_aff[0]),
+                                (d_aff[1].double(), p_db.double(), want_aff[1])):
+            assert (got_t - p_t).norm() <= 2 * (p_t - w_t).norm() + 1e-3 * w_t.norm()
+    else:
+        torch.testing.assert_close(out, plain.detach(), **TOL)
+        # elements whose y the two compute on other sides of 0 (rounding of
+        # the statistics); their dx and their column-sum terms apart
+        flip = keep != (masked_batch_norm(x, mask, scale, bias) > 0)  # the plain chain's mask
+        assert int(flip.sum()) <= max(8, flip.numel() // 1_000_000), int(flip.sum())
+        torch.testing.assert_close(dx[~flip], p_dx[~flip], **TOL)
+        gd = g.double()
+        slack = torch.stack([(gd * xh).abs().mul(flip).sum(0), gd.abs().mul(flip).sum(0)])
+        p_aff = torch.stack([p_ds, p_db]).double()
+        assert bool(((d_aff.double() - p_aff).abs() <= 1e-5 * (1 + mag) + slack).all())
+
+    # through autograd: one launch of each entry, d_residual is g
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, res)]
+    before = {k: v.launches for k, v in KERNELS.items()}
+    out2 = batch_norm_relu_residual(leaves[0], mask, *leaves[1:])
+    grads = torch.autograd.grad(out2, leaves, g)
+    torch.cuda.synchronize()
+    grew = {k: v.launches - before[k] for k, v in KERNELS.items() if v.launches != before[k]}
+    assert grew == {k + tail: 1 for k in BN_ENTRIES}, grew
+    assert grads[3] is g
+    assert torch.equal(out2, out) and torch.equal(grads[0], dx)
+    assert torch.equal(grads[1], d_aff[0].to(dtype)) and torch.equal(grads[2], d_aff[1].to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [72, 256, 4104])
+def test_batch_norm_relu_residual_kernel_misaligned(cuda, d, dtype):
+    """Bases off 16-byte alignment load element by element the same chunks
+    the aligned call loads as 16-byte accesses: the same bits."""
+    rows = 513
+    x, scale, bias, res, g = _ln_case(cuda, rows, d, dtype)
+    mask = _bn_mask(rows, "scattered", cuda)
+    assert batch_norm_plan(d).vec > 1
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+        return out
+
+    out, sums = batch_norm_relu_residual_fwd(x, mask, scale, bias, res)
+    xs, ss, bs, rs = map(shifted, (x, scale, bias, res))
+    out2, sums2 = batch_norm_relu_residual_fwd(xs, mask, ss, bs, rs)
+    assert torch.equal(out2, out) and torch.equal(sums2, sums)
+    dx, d_aff = batch_norm_relu_residual_bwd(x, g, mask, sums, scale, bias)
+    dx2, d_aff2 = batch_norm_relu_residual_bwd(xs, shifted(g), mask, sums, ss, bs)
     assert torch.equal(dx2, dx) and torch.equal(d_aff2, d_aff)
