@@ -50,6 +50,14 @@ BatchNorm branch; the endpoint gathers, ``B3·e`` and the adds elsewhere),
 and ``aggregate``, from the σ sums to ``a1h + h_fwd + h_bwd`` (on the
 BatchNorm branch with the gate epilog, which holds ``e_new`` and the
 forward sums). Neither holds a norm.
+
+The graph may be one rank's shard of a larger one (``parallel/sharded.py``):
+``halo`` (:class:`Halo`) then completes what reaches past it, the endpoint
+tables ``b1h`` and ``a2h``, the reverse σ sums before their division, the
+edge BatchNorm's moments and the node BatchNorm's group. The default,
+:data:`ONE_CARD`, returns what it is given, so on one card the layer runs
+the same kernels in the same order. The wide-gather branches run on one
+card only.
 """
 from __future__ import annotations
 
@@ -67,12 +75,39 @@ from gnnome_tpu_torch.ops.segment import (
     fused_gate_sigma_gather,
     gated_aggregate,
     gated_aggregate_pregathered,
-    gated_mean_by_src,
+    gated_mean,
+    gated_sums_by_src,
     gather_by_endpoint,
 )
 from gnnome_tpu_torch.utils.profiling import span
 
 WIDE_GATHERS = (False, True, "src")
+
+
+class Halo:
+    """One card's halo, where the graph owns every row: each member returns
+    what it is given. A shard's (``parallel/sharded.py``) overrides them:
+    ``exchange`` maps ``[N, W]`` tables to ``[N + halo, W]`` ones (own rows
+    ‖ halo rows), ``reduce`` is its transpose, ``edge_moments`` takes the
+    gate's mean and variance from the gate front's ``[Σ gate ‖ Σ gate²]``
+    (f32 [2, D]) over ``n_edges`` real edges, and ``group`` is the node
+    BatchNorm's process group."""
+
+    group = None
+
+    def exchange(self, tables):
+        return tables
+
+    def reduce(self, sums):
+        return sums
+
+    def edge_moments(self, mom: torch.Tensor, n_edges: int):
+        cnt = float(max(n_edges, 1))
+        mean = mom[0] / cnt
+        return mean, torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
+
+
+ONE_CARD = Halo()
 
 
 def init_gated_gcn_layer(gen: torch.Generator, dim: int, device="cuda") -> Dict:
@@ -88,8 +123,10 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
                     dropout_rate: float = 0.0,
                     dropout_rng: Optional[torch.Generator] = None,
                     eps: float = 1e-6,
-                    wide_gathers=False) -> tuple[torch.Tensor, torch.Tensor]:
-    """One layer; ``dropout_rng`` is a generator on ``h``'s device."""
+                    wide_gathers=False,
+                    halo: Halo = ONE_CARD) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer; ``dropout_rng`` is a generator on ``h``'s device, ``halo``
+    the seam to rows the graph does not own (:class:`Halo`)."""
     if wide_gathers not in WIDE_GATHERS:
         raise ValueError(f"wide_gathers={wide_gathers!r}; one of {WIDE_GATHERS}")
     h_in, e_in = h, e
@@ -99,6 +136,7 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
     a3h = linear(params["A3"], h)
     b1h = linear(params["B1"], h)
     b2h = linear(params["B2"], h)
+    b1h, a2h = halo.exchange([b1h, a2h])
 
     a3_dst = mom = None
     with span("gate"):
@@ -126,9 +164,7 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
     if batch_norm:
         with span("norm"):
             if mom is not None:
-                cnt = float(max(graph.n_edges, 1))
-                mean = mom[0] / cnt
-                var = torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
+                mean, var = halo.edge_moments(mom, graph.n_edges)
             else:
                 mean, var = masked_moments(gate, graph.edge_mask)
             # the affine in f32 whatever the compute dtype
@@ -146,7 +182,7 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
                                                           graph.by_dst)
             else:
                 sum_f, e_new = fused_gate_sigma_gather(gate, e_in, a2h, affine, graph)
-            h_fwd = sum_f[:, :d] / (sum_f[:, d:] + eps)
+            h_fwd = gated_mean(sum_f, eps)
         elif wide_gathers:
             h_fwd = gated_aggregate_pregathered(a2_src, e_new, graph.by_dst, eps)
         else:
@@ -155,11 +191,11 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
         if a3_dst is not None:
             h_bwd = gated_aggregate_pregathered(a3_dst, e_new, graph.by_src, eps)
         else:
-            h_bwd = gated_mean_by_src(a3h, e_new, graph, eps)
+            h_bwd = gated_mean(halo.reduce(gated_sums_by_src(a3h, e_new, graph)), eps)
         h = a1h + h_fwd.to(h_in.dtype) + h_bwd.to(h_in.dtype)
     if batch_norm:
         h = batch_norm_relu_residual(h, graph.node_mask, params["norm_h"]["scale"],
-                                     params["norm_h"]["bias"], h_in)
+                                     params["norm_h"]["bias"], h_in, group=halo.group)
     else:
         h = layer_norm_relu_residual(h, params["norm_h"]["scale"], params["norm_h"]["bias"],
                                      h_in)

@@ -13,7 +13,9 @@ Parameters are a plain dictionary with the JAX package's tree layout
 (see ``train/checkpoint.py``). Differentiable end to end on every branch
 (BatchNorm or LayerNorm, narrow or wide gathers; every sparse op through
 its backward kernels); ``remat`` trades activation memory for a recomputed
-forward, and dropout follows the JAX package's API, as there.
+forward, and dropout follows the JAX package's API, as there. A shard of a
+graph (``parallel/sharded.py``) runs this same forward through its halo
+(``models/gated_gcn.py`` ``Halo``), which on one card changes nothing.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gnnome_tpu_torch.core.graph import AssemblyGraph
 from gnnome_tpu_torch.models.common import init_linear, linear
-from gnnome_tpu_torch.models.gated_gcn import gated_gcn_layer, init_gated_gcn_layer
+from gnnome_tpu_torch.models.gated_gcn import (
+    ONE_CARD, Halo, gated_gcn_layer, init_gated_gcn_layer)
 from gnnome_tpu_torch.ops.dense import matmul
 from gnnome_tpu_torch.ops.segment import gather_by_endpoint
 from gnnome_tpu_torch.utils.profiling import span
@@ -46,15 +49,17 @@ def init_model_params(gen: torch.Generator, cfg, device="cuda") -> Dict:
 
 
 def score_predictor(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
-                    e: torch.Tensor) -> torch.Tensor:
+                    e: torch.Tensor, halo: Halo = ONE_CARD) -> torch.Tensor:
     """Per-edge score MLP on ``[h_src ‖ h_dst ‖ e]`` in split-matmul form:
     ``h`` is multiplied by the src and dst row blocks of W1 at node width,
-    the two products are gathered per edge, and the [E, 3D] concat is never
-    built (``gnnome_tpu/models/model.py:52-74``)."""
+    the two products are gathered per edge (the src one through ``halo``'s
+    exchange), and the [E, 3D] concat is never built
+    (``gnnome_tpu/models/model.py:52-74``)."""
     d = h.shape[-1]
     w1, b1 = params["score1"]["w"], params["score1"]["b"]
     h_src_proj = matmul(h, w1[:d])
     h_dst_proj = matmul(h, w1[d: 2 * d])
+    (h_src_proj,) = halo.exchange([h_src_proj])
     pre = (gather_by_endpoint(h_src_proj, graph.src, graph.by_src)
            + gather_by_endpoint(h_dst_proj, graph.dst, graph.by_dst)
            + matmul(e, w1[2 * d:])
@@ -95,13 +100,6 @@ def _layer_stack(layer_fn, layers, h, e):
     return h, e
 
 
-def remat_group_size(remat: str, n_layers: int, remat_group: int) -> int:
-    """Layers per checkpoint under a checkpointing ``remat`` mode
-    (:func:`model_forward`): 1 for ``"layer"``, else ``remat_group`` (1 if
-    it does not divide the depth). The sharded step uses it too."""
-    return 1 if remat == "layer" or n_layers % remat_group else remat_group
-
-
 def _layer_rng(rng: torch.Generator, device: torch.device) -> torch.Generator:
     """A generator on ``device`` seeded from ``rng``: one stream per layer,
     as the JAX package folds the layer index into its key."""
@@ -113,7 +111,7 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
                   pe: torch.Tensor, batch_norm: bool = True, remat: str = "layer",
                   remat_group: int = 4, wide_gathers=False, dropout_rate: float = 0.0,
                   dropout_rng: Optional[torch.Generator] = None,
-                  compute_dtype: str = "float32") -> torch.Tensor:
+                  compute_dtype: str = "float32", halo: Halo = ONE_CARD) -> torch.Tensor:
     """Per-edge logits, f32[E_pad] in canonical order (rows past
     ``graph.n_edges`` are padding). ``e_feat``: f32[E_pad, 2] z-normed
     [overlap_length, overlap_similarity]; ``pe``: f32[N_pad, nb_pos_enc + 2]
@@ -147,6 +145,11 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
     The score head stays outside every checkpoint. Recompute reproduces the
     forward only because every kernel on it is deterministic (fixed-order
     sums, no atomics). With gradients off, nothing is checkpointed.
+
+    ``halo`` reaches the rows ``graph`` does not own (``models/gated_gcn.py``
+    ``Halo``; the default, one card's, changes nothing): the sharded step
+    passes its shard's graph and halo, and a recompute then runs the
+    layer's collectives again, in the same order on every rank.
     """
     if remat not in REMAT_MODES:
         raise ValueError(f"unknown remat mode {remat!r}; one of {REMAT_MODES}")
@@ -163,24 +166,24 @@ def model_forward(params: Dict, graph: AssemblyGraph, e_feat: torch.Tensor,
             h, e = gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
                                    dropout_rate=dropout_rate,
                                    dropout_rng=_layer_rng(dropout_rng, h.device),
-                                   wide_gathers=wide_gathers)
+                                   wide_gathers=wide_gathers, halo=halo)
     else:
         def layer_fn(lp, h, e):
             # inside the checkpointed function: the recompute opens it again
             with span("model.layer"):
                 return gated_gcn_layer(lp, graph, h, e, batch_norm=batch_norm,
-                                       wide_gathers=wide_gathers)
+                                       wide_gathers=wide_gathers, halo=halo)
 
         if remat == "none" or not torch.is_grad_enabled():
             # rebinding h, e frees each layer's input once nothing saved it
             for lp in layers:
                 h, e = layer_fn(lp, h, e)
         else:
-            g = remat_group_size(remat, len(layers), remat_group)
+            g = 1 if remat == "layer" or len(layers) % remat_group else remat_group
             for i in range(0, len(layers), g):
                 h, e = checkpoint(_layer_stack, layer_fn, layers[i: i + g], h, e,
                                   use_reentrant=False)
-    return score_predictor(params, graph, h, e).to(torch.float32)
+    return score_predictor(params, graph, h, e, halo).to(torch.float32)
 
 
 def count_params(params) -> int:

@@ -55,7 +55,9 @@ def fused_gate_sigma_aggregate(gate_raw, e_in, vals, affine, csr: CSR):
     return GateSigmaGather.apply(gate_raw, e_in, vals, affine, csr, None, None)
 
 
-def _mean(sums: torch.Tensor, eps: float) -> torch.Tensor:
+def gated_mean(sums: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``Σ σ·v / (Σ σ + eps)`` from a table of sums ``[Σ σ·v ‖ Σ σ]``
+    ([N, 2D], as the σ kernels return them)."""
     d = sums.shape[-1] // 2
     return sums[:, :d] / (sums[:, d:] + eps)
 
@@ -70,7 +72,7 @@ def gated_aggregate(values: torch.Tensor, gate_pre: torch.Tensor,
     ``value_index = src`` is the LayerNorm layer's forward aggregation;
     by_src with ``dst`` is the reverse aggregation (:func:`gated_mean_by_src`)."""
     fn = SigmaAggregate if csr.identity else SigmaReverseSum
-    return _mean(fn.apply(gate_pre, values, csr, value_index, value_csr_t), eps)
+    return gated_mean(fn.apply(gate_pre, values, csr, value_index, value_csr_t), eps)
 
 
 def gated_aggregate_pregathered(vals: torch.Tensor, gate_pre: torch.Tensor, csr: CSR,
@@ -78,7 +80,7 @@ def gated_aggregate_pregathered(vals: torch.Tensor, gate_pre: torch.Tensor, csr:
     """:func:`gated_aggregate` when the value rows are already gathered per
     canonical edge ([E, D], e.g. a half of a paired wide-row gather); the
     gradient with respect to ``vals`` is per edge."""
-    return _mean(SigmaAggregate.apply(gate_pre, vals, csr, None, None), eps)
+    return gated_mean(SigmaAggregate.apply(gate_pre, vals, csr, None, None), eps)
 
 
 def _fused_sigma_opposite(values: torch.Tensor, gate_pre: torch.Tensor, csr: CSR,
@@ -94,7 +96,15 @@ def gated_aggregate_opposite(values: torch.Tensor, gate_pre: torch.Tensor, csr: 
     """:func:`gated_aggregate` keyed on ``csr`` (by_src) with the neighbour
     rows read in src-sorted order (``csr.opp_ids``). The same function as
     :func:`gated_mean_by_src`, which the model uses on every graph."""
-    return _mean(_fused_sigma_opposite(values, gate_pre, csr, by_opp), eps)
+    return gated_mean(_fused_sigma_opposite(values, gate_pre, csr, by_opp), eps)
+
+
+def gated_sums_by_src(values: torch.Tensor, e_new: torch.Tensor,
+                      graph: AssemblyGraph) -> torch.Tensor:
+    """``[Σ σ(e_new)·values[dst] ‖ Σ σ(e_new)]`` (f32 [N, 2D]) over each
+    node's out-edges: the reverse aggregation before :func:`gated_mean`."""
+    fn = SigmaAggregate if graph.by_src.identity else SigmaReverseSum
+    return fn.apply(e_new, values, graph.by_src, graph.dst, graph.by_dst)
 
 
 def gated_mean_by_src(values: torch.Tensor, e_new: torch.Tensor,
@@ -103,4 +113,4 @@ def gated_mean_by_src(values: torch.Tensor, e_new: torch.Tensor,
     ``Σ σ(e_new)·values[dst] / (Σ σ(e_new) + eps)`` — the aggregation on the
     reversed graph (``layers/gated_gcn_full.py:133-143``). Replaces the JAX
     package's ``gated_aggregate_reverse_unsorted``, on every graph."""
-    return gated_aggregate(values, e_new, graph.dst, graph.by_dst, graph.by_src, eps)
+    return gated_mean(gated_sums_by_src(values, e_new, graph), eps)

@@ -22,15 +22,13 @@ Counterpart of ``gnnome_tpu/parallel/sharded.py``, whose design it keeps
     over the graph group, so the statistics are those of the whole graph;
   * **graphs** shard over the ``data`` axis, one graph per replica group.
 
-The layer runs the port's own single-card route (``models/gated_gcn.py``) on
-a shard "graph" whose src is ``ref`` (into the combined table), whose dst
-is the clamped ``key_local``, whose by_dst layout is the local identity CSR
-and whose by_src layout the ref CSR over ``N_local + P·H`` rows: the same
-kernels (``ops/gate_front.py``, ``ops/gate_epilog.py``,
-``ops/reverse_sum.py``, ``ops/sigma_aggregate.py``, ``ops/take.py``,
-``ops/segment_sum.py``) on value tables whose row count is not their
-segment count. At P = 1 the halo is empty and the step is the single-card
-step.
+There is no sharded layer: :func:`sharded_forward` runs ``model_forward``
+(``models/model.py``, ``models/gated_gcn.py``, spans included) on
+:attr:`RankShard.graph`, the shard as a graph whose src is ``ref``, whose
+dst is the clamped ``key_local`` and whose by_src layout is the ref CSR
+over ``N_local + P·H`` rows, with the collectives entering through
+:class:`ShardHalo`, the layer's ``Halo`` seam. At P = 1 the halo is empty
+and the step is the single-card step.
 
 Gradients: every rank backpropagates its own share of the loss (its edges'
 sum over the graph's real-edge count, over the data axis's size), the
@@ -59,21 +57,12 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.utils.checkpoint import checkpoint
 
 from gnnome_tpu_torch.core.collectives import all_reduce_sum, all_to_all, reduce_
-from gnnome_tpu_torch.core.graph import CSR, PAD_SEGMENT
-from gnnome_tpu_torch.models.common import linear
-from gnnome_tpu_torch.models.model import (
-    REMAT_MODES, _cast_params, _layer_stack, compute_dtype_of, remat_group_size)
-from gnnome_tpu_torch.ops.dense import matmul
-from gnnome_tpu_torch.ops.gate_epilog import GateSigmaGather
-from gnnome_tpu_torch.ops.gate_front import GateFront
-from gnnome_tpu_torch.ops.norm import batch_norm_relu_residual, layer_norm_relu_residual
-from gnnome_tpu_torch.ops.reverse_sum import SigmaReverseSum
-from gnnome_tpu_torch.ops.segment import _mean
+from gnnome_tpu_torch.core.graph import CSR, PAD_SEGMENT, AssemblyGraph
+from gnnome_tpu_torch.models.gated_gcn import Halo
+from gnnome_tpu_torch.models.model import model_forward
 from gnnome_tpu_torch.ops.segment_sum import segment_sum
-from gnnome_tpu_torch.ops.sigma_aggregate import SigmaAggregate
 from gnnome_tpu_torch.ops.take import TakeRows, take_rows
 from gnnome_tpu_torch.parallel.mesh import Mesh
 from gnnome_tpu_torch.train.checkpoint import iter_leaves
@@ -333,7 +322,9 @@ class RankShard:
     combined-table endpoint and its CSR; ``by_send`` (over ``N_local``) the
     CSR of the halo's send list, whose key is ``send_idx`` with
     ``PAD_SEGMENT`` on the unused slots. ``n_real``: this shard's
-    real edges (they lead its bucket); ``n_real_graph``: the graph's."""
+    real edges (they lead its bucket); ``n_real_graph``: the graph's.
+    ``graph``: the shard as a graph (src ``ref``, dst ``key``, by_src
+    ``by_ref``, by_dst ``by_key``, ``n_edges`` ``n_real``, edge_mask ``mask``)."""
 
     n_local: int
     n_halo: int  # P·H
@@ -349,6 +340,7 @@ class RankShard:
     by_key: CSR
     by_ref: CSR
     by_send: CSR
+    graph: AssemblyGraph
 
 
 def shard_batch(batch: ShardedBatch, mesh: Mesh) -> RankShard:
@@ -362,26 +354,40 @@ def shard_batch(batch: ShardedBatch, mesh: Mesh) -> RankShard:
 
     key_local = t(f["key_local"])
     send_key = f["send_segment_ids"][f["send_inv_order"]]  # canonical order
+    own_rows = batch.node_mask[b, p * n_local: (p + 1) * n_local]
+    own_order = np.arange(f["mask"].shape[0])  # a shard's edges are in its own order
+    graph = AssemblyGraph(
+        n_nodes=int(own_rows.sum()),
+        n_edges=int(f["mask"].sum()),
+        src=t(f["ref"]),
+        dst=t(np.where(f["key_local"] < n_local, f["key_local"], 0)),
+        node_mask=t(own_rows),
+        edge_mask=t(f["mask"]),
+        by_dst=CSR(key=key_local, order=None, segment_ids=key_local, offsets=t(f["offsets"])),
+        by_src=CSR(key=t(f["ref_canonical"]), order=t(f["ref_order"]),
+                   segment_ids=t(f["ref_segment_ids"]), offsets=t(f["ref_offsets"]),
+                   inv_order=t(f["ref_inv_order"])),
+        edge_perm=own_order,
+        edge_inv_perm=own_order,
+    )
     return RankShard(
         n_local=n_local,
         n_halo=f["send_idx"].shape[0],
-        n_real=int(f["mask"].sum()),
+        n_real=graph.n_edges,
         n_real_graph=int(batch.fwd.mask[b].sum()),
-        node_mask=t(batch.node_mask[b, p * n_local: (p + 1) * n_local]),
+        node_mask=graph.node_mask,
         pe=t(batch.pe[b, p * n_local: (p + 1) * n_local]),
-        mask=t(f["mask"]),
+        mask=graph.edge_mask,
         e_feat=t(f["e_feat"]),
         y=t(f["y"]),
-        key=t(np.where(f["key_local"] < n_local, f["key_local"], 0)),
-        ref=t(f["ref"]),
-        by_key=CSR(key=key_local, order=None, segment_ids=key_local,
-                   offsets=t(f["offsets"])),
-        by_ref=CSR(key=t(f["ref_canonical"]), order=t(f["ref_order"]),
-                   segment_ids=t(f["ref_segment_ids"]), offsets=t(f["ref_offsets"]),
-                   inv_order=t(f["ref_inv_order"])),
+        key=graph.dst,
+        ref=graph.src,
+        by_key=graph.by_dst,
+        by_ref=graph.by_src,
         by_send=CSR(key=t(send_key), order=t(f["send_order"]),
                     segment_ids=t(f["send_segment_ids"]), offsets=t(f["send_offsets"]),
                     inv_order=t(f["send_inv_order"])),
+        graph=graph,
     )
 
 
@@ -443,110 +449,34 @@ def halo_reduce(comb: torch.Tensor, shard: RankShard, mesh: Mesh) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-def _edge_moments(mom: torch.Tensor, shard: RankShard, mesh: Mesh):
-    """Mean and variance of the gate from the gate front's per-shard sums
-    ``[Σ gate ‖ Σ gate²]`` (f32 [2, D]), all-reduced over the graph group
-    (each real edge counted once, on the owner of its dst), over the
-    graph's real edges."""
-    mom = all_reduce_sum(mom, mesh.graph_group)
-    cnt = float(max(shard.n_real_graph, 1))
-    mean = mom[0] / cnt
-    return mean, torch.clamp(mom[1] / cnt - mean * mean, min=0.0)
+class ShardHalo(Halo):
+    """The layer's ``Halo`` (``models/gated_gcn.py``) on a rank's shard:
+    :func:`halo_exchange`, :func:`halo_reduce`, the gate front's sums
+    all-reduced over the graph group (each real edge counted once, on its
+    dst's owner) over the graph's real edges, and the graph group."""
 
+    def __init__(self, shard: RankShard, mesh: Mesh):
+        self.shard, self.mesh, self.group = shard, mesh, mesh.graph_group
 
-def _sharded_gated_gcn_layer(lp: Dict, h: torch.Tensor, e: torch.Tensor,
-                             shard: RankShard, mesh: Mesh, batch_norm: bool,
-                             eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One GatedGCN layer on this rank's shard (``models/gated_gcn.py``'s
-    narrow route, the value tables combined): BatchNorm through the gate
-    front, the gate epilog with its gather and the reverse aggregation,
-    LayerNorm through the two row gathers, the σ-aggregate with its gather
-    and the reverse aggregation; the reverse sums come back through
-    :func:`halo_reduce` before the division."""
-    h_in, e_in = h, e
-    d = h.shape[-1]
-    # the single-card layer's order, so that the gradients of h accumulate
-    # in the same order (bit for bit at P = 1)
-    a1h = linear(lp["A1"], h)
-    a2h = linear(lp["A2"], h)
-    a3h = linear(lp["A3"], h)
-    b1h = linear(lp["B1"], h)
-    b2h = linear(lp["B2"], h)
-    b1_tab, a2_tab = halo_exchange([b1h, a2h], shard, mesh)  # [N_local + P·H, D] each
+    def exchange(self, tables):
+        return halo_exchange(tables, self.shard, self.mesh)
 
-    if batch_norm:
-        gate, mom = GateFront.apply(b1_tab, b2h, e, lp["B3"]["w"], lp["B3"]["b"],
-                                    shard.ref, shard.key, shard.n_real, shard.by_ref,
-                                    shard.by_key)
-        mean, var = _edge_moments(mom, shard, mesh)
-        scale2 = torch.rsqrt(var + 1e-5) * lp["norm_e"]["scale"].to(torch.float32)
-        bias2 = lp["norm_e"]["bias"].to(torch.float32) - mean * scale2
-        sum_f, e_new = GateSigmaGather.apply(gate, e_in, a2_tab, torch.stack([scale2, bias2]),
-                                             shard.by_key, shard.ref, shard.by_ref)
-    else:
-        gate = (TakeRows.apply(b1_tab, shard.ref, shard.by_ref)
-                + TakeRows.apply(b2h, shard.key, shard.by_key)
-                + linear(lp["B3"], e))
-        e_new = layer_norm_relu_residual(gate, lp["norm_e"]["scale"], lp["norm_e"]["bias"],
-                                         e_in)
-        sum_f = SigmaAggregate.apply(e_new, a2_tab, shard.by_key, shard.ref, shard.by_ref)
-    h_fwd = _mean(sum_f, eps)
-    # reverse aggregation: σ·a3h[dst] partial sums over the combined table
-    comb = SigmaReverseSum.apply(e_new, a3h, shard.by_ref, shard.key, shard.by_key)
-    h_bwd = _mean(halo_reduce(comb, shard, mesh), eps)
+    def reduce(self, sums):
+        return halo_reduce(sums, self.shard, self.mesh)
 
-    h = a1h + h_fwd.to(h_in.dtype) + h_bwd.to(h_in.dtype)
-    if batch_norm:
-        h = batch_norm_relu_residual(h, shard.node_mask, lp["norm_h"]["scale"],
-                                     lp["norm_h"]["bias"], h_in, group=mesh.graph_group)
-    else:
-        h = layer_norm_relu_residual(h, lp["norm_h"]["scale"], lp["norm_h"]["bias"], h_in)
-    return h, e_new
+    def edge_moments(self, mom, n_edges):
+        return super().edge_moments(all_reduce_sum(mom, self.group), self.shard.n_real_graph)
 
 
 def sharded_forward(params: Dict, shard: RankShard, mesh: Mesh, batch_norm: bool = True,
                     remat: str = "layer", compute_dtype: str = "float32",
                     remat_group: int = 4) -> torch.Tensor:
     """This shard's edge logits, f32 ``[E_b]`` (rows past ``n_real`` are
-    padding). ``remat`` and ``compute_dtype`` as in ``model_forward``
-    (``"group"`` and ``"unroll_group"`` are one group checkpoint; a
-    recompute runs the layer's collectives again, in the same order on
-    every rank). The score head is JAX's split-matmul form with its own
-    halo exchange of the projected src rows."""
-    if remat not in REMAT_MODES:
-        raise ValueError(f"unknown remat mode {remat!r}; one of {REMAT_MODES}")
-    cdt = compute_dtype_of(compute_dtype)
-    pe, e_feat = shard.pe, shard.e_feat
-    if cdt != torch.float32:
-        params = _cast_params(params, cdt)
-        pe, e_feat = pe.to(cdt), e_feat.to(cdt)
-    h = linear(params["linear_pe"], pe)
-    e = torch.relu(linear(params["linear1_edge"], e_feat))
-    e = linear(params["linear2_edge"], e)
-
-    def layer_fn(lp, h, e):
-        return _sharded_gated_gcn_layer(lp, h, e, shard, mesh, batch_norm)
-
-    layers = params["layers"]
-    if remat == "none" or not torch.is_grad_enabled():
-        for lp in layers:  # rebinding h, e frees each layer's input
-            h, e = layer_fn(lp, h, e)
-    else:
-        g = remat_group_size(remat, len(layers), remat_group)
-        for i in range(0, len(layers), g):
-            h, e = checkpoint(_layer_stack, layer_fn, layers[i: i + g], h, e,
-                              use_reentrant=False)
-
-    d = h.shape[-1]
-    w1, bias1 = params["score1"]["w"], params["score1"]["b"]
-    h_src_proj = matmul(h, w1[:d])
-    h_dst_proj = matmul(h, w1[d: 2 * d])
-    (src_tab,) = halo_exchange([h_src_proj], shard, mesh)
-    pre = (TakeRows.apply(src_tab, shard.ref, shard.by_ref)
-           + TakeRows.apply(h_dst_proj, shard.key, shard.by_key)
-           + matmul(e, w1[2 * d:])
-           + bias1)
-    return linear(params["score2"], torch.relu(pre))[:, 0].to(torch.float32)
+    padding): ``model_forward`` on :attr:`RankShard.graph` through the
+    shard's :class:`ShardHalo`, with its ``remat`` and ``compute_dtype``."""
+    return model_forward(params, shard.graph, shard.e_feat, shard.pe, batch_norm=batch_norm,
+                         remat=remat, remat_group=remat_group, compute_dtype=compute_dtype,
+                         halo=ShardHalo(shard, mesh))
 
 
 def make_sharded_loss(mesh: Mesh, batch_norm: bool = True, remat: str = "layer",

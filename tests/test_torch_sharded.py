@@ -510,5 +510,57 @@ def test_p1_equals_single_device(inputs, batch_norm):
         assert np.array_equal(grads[k], w), k
 
 
+
+def _span_tree(prof):
+    """The program spans a profiler recorded, as ``[(name, children)]``
+    in the order they opened (``gnnome.`` dropped)."""
+    from gnnome_tpu_torch.utils.profiling import SPAN_PREFIX
+    from test_torch_spans import _parents
+
+    spans, parent = _parents(prof.events())
+    kids = {}
+    for s in sorted(spans, key=lambda s: s.time_range.start):
+        kids.setdefault(id(parent[id(s)]), []).append(s)
+
+    def walk(key):
+        return [(s.name[len(SPAN_PREFIX):], walk(id(s))) for s in kids.get(key, [])]
+
+    return walk(id(None))
+
+
+@pytest.mark.parametrize("batch_norm", [True, False])
+def test_p1_step_opens_the_layer_spans(inputs, batch_norm):
+    """A training step of the sharded loss at world size 1 opens the spans
+    of ``model_forward``'s on the same graph, recompute included: per layer
+    ``model.layer`` ⊃ ``gate``, ``norm``, ``aggregate``, ``norm``."""
+    from gnnome_tpu_torch.evaluation.metrics import bce_with_logits
+    from gnnome_tpu_torch.models.model import model_forward
+    from gnnome_tpu_torch.parallel.mesh import make_mesh
+    from gnnome_tpu_torch.parallel.sharded import make_sharded_loss, prepare_batch, shard_batch
+    from gnnome_tpu_torch.train.checkpoint import iter_leaves, params_from_jax
+
+    mesh = make_mesh(device="cpu")
+    s = port_sample(dict(np.load(inputs["graphs"]["p2"][0])))
+    shard = shard_batch(prepare_batch([s], mesh), mesh)
+    sharded_loss = make_sharded_loss(mesh, batch_norm=batch_norm)
+
+    def tree_of(loss_fn):
+        params = params_from_jax(inputs["params"], device="cpu")
+        for _, leaf in iter_leaves(params):
+            leaf.requires_grad_(True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            loss_fn(params).backward()
+        return _span_tree(prof)
+
+    got = tree_of(lambda p: sharded_loss(p, shard, POS_WEIGHT)[1])
+    want = tree_of(lambda p: bce_with_logits(
+        model_forward(p, s.graph, s.e_feat, s.pe, batch_norm=batch_norm), s.y,
+        s.graph.edge_mask, POS_WEIGHT))
+    n_layers = inputs["cfg"].num_gnn_layers
+    assert [name for name, _ in want] == ["model.layer"] * (2 * n_layers)  # forward, recompute
+    assert all([c for c, _ in kids] == ["gate", "norm", "aggregate", "norm"]
+               for _, kids in want)
+    assert got == want
+
 if __name__ == "__main__":
     _worker(sys.argv[1], int(sys.argv[2]))
