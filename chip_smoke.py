@@ -19,8 +19,9 @@ stopped); any failure raises and exits non-zero:
              land within 22 node ids (rows gathered near each other), and
              the same graph with 11.93% of its edges rewired to random loci,
              the cross-locus share of real graphs. The row gather is held at
-             the score head's 64, the LayerNorm gathers' D = 256 and the
-             wide-gather width 2D = 512; the segment sums at D and 2D.
+             the score head's 64, the ``"src"`` wide path's dst gather at
+             D = 256 and the wide-gather width 2D = 512; the segment sums
+             at D and 2D.
              Every entry runs again on the shape of the ClusterGCN piece
              with the most padding in phase 7 (14,336 / 91,136 rows, 26,638
              of them padded edges), and the seven entries that walk fixed
@@ -601,8 +602,8 @@ def phase_parity(torch, graph, seed: int) -> list[dict]:
            lambda: take_rows_plain(table, graph.src),
            lambda: table.index_select(0, graph.src),
            u_src * d_score * 4 + e * 4 + e * d_score * 4, 0)
-    # ... at the LayerNorm layer's endpoint width D, and at the wide-gather
-    # width: [b1h ‖ a2h] by src
+    # ... at the endpoint width D (the "src" wide path's b2h by dst), and at
+    # the wide-gather width: [b1h ‖ a2h] by src
     for key, width in (("at_d", d), ("at_2d", d_wide)):
         table = randn(n, width)
         err = check_close(f"take_rows[{width}]", torch, take_rows(table, graph.src),
@@ -1078,7 +1079,7 @@ BN_NODE_BWD = {"batch_norm_relu_residual_bwd_sums": 1, "batch_norm_relu_residual
 FWD_PER_LAYER = {
     "batchnorm": {"gate_front": 1, "gate_sigma_gather": 1, "sigma_reverse_sum": 1,
                   **BN_NODE_FWD},
-    "layernorm": {"take_rows": 2, "sigma_aggregate_gather": 1, "sigma_reverse_sum": 1,
+    "layernorm": {"gate_front": 1, "sigma_aggregate_gather": 1, "sigma_reverse_sum": 1,
                   "layer_norm_relu_residual": 2},
     "wide": {"take_rows": 2, "gate_sigma_aggregate": 1, "sigma_aggregate_by_src": 1,
              **BN_NODE_FWD},
@@ -1092,8 +1093,8 @@ BWD_PER_LAYER = {
     # aggregation's d_values by dst; the node norm
     "batchnorm": {"gate_front_bwd": 1, "epilog_bwd": 1, "rev_bwd": 1,
                   "segment_sum_by_dst": 2, "segment_sum_by_src": 2, **BN_NODE_BWD},
-    # the two gathers, h_fwd's d_values by src, h_bwd's by dst; the edge and
-    # node norms
+    # the gate front's d_b1h / d_b2h (its moments unread: no gate_front_bwd),
+    # h_fwd's d_values by src, h_bwd's by dst; the edge and node norms
     "layernorm": {"sigma_aggregate_bwd_gather": 1, "rev_bwd": 1,
                   "segment_sum_by_dst": 2, "segment_sum_by_src": 2,
                   "layer_norm_relu_residual_bwd": 2},

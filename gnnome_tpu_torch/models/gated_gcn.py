@@ -23,11 +23,11 @@ Every branch runs on kernels, following the JAX layer line by line
   stay plain autograd, which carries ``d_mom`` into the gate front's
   backward; the node BatchNorm with its ReLU and residual in one kernel
   pair each way;
-* ``batch_norm=False`` (LayerNorm): the two endpoint gathers (row gather
-  kernel, segment-sum backward) plus ``B3·e``, the LayerNorm with its ReLU
-  and residual in one row kernel (edge and node norm alike), the forward
-  aggregation with the gather inside the σ-aggregate kernel, and the
-  reverse aggregation;
+* ``batch_norm=False`` (LayerNorm): the same gate front, its moments left
+  unread and out of its backward (where JAX adds two endpoint gathers and
+  ``B3·e``), the LayerNorm with its ReLU and residual in one row kernel
+  (edge and node norm alike), the forward aggregation with the gather
+  inside the σ-aggregate kernel, and the reverse aggregation;
 * ``wide_gathers`` (``True`` / ``"src"``): the endpoint tables are gathered
   in pairs at width 2D (``[b1h‖a2h]`` by src, ``[b2h‖a3h]`` by dst, or
   ``b2h`` alone for ``"src"``), the BatchNorm statistics come from
@@ -38,25 +38,28 @@ Every sum on these paths is a fixed-order CSR walk (no float atomics), so
 a checkpointed layer's recompute reproduces its forward bit for bit.
 Under bf16 compute (``h``, ``e`` and the parameters bf16; every branch)
 the BatchNorm moments, the folded affine and the aggregation sums stay
-f32, the LayerNorm and the gate's adds run in bf16, and ``h_fwd`` /
+f32, the LayerNorm and the wide gate's adds run in bf16, and ``h_fwd`` /
 ``h_bwd`` return to bf16, as in JAX (``gnnome_tpu/models/gated_gcn.py``).
+The gate front rounds as the TPU kernel does (``ops/gate_front.py``), so
+the LayerNorm gate takes one rounding fewer than JAX's two bf16 adds.
 Dropout, as in JAX, is applied to ``h`` after the residual when a rate and
 a generator are given.
 
 Besides the ``norm`` spans of ``ops/norm.py``, two spans
 (``utils/profiling.py``) mark the layer's other parts: ``gate``, the edge
-gate's assembly up to the pre-norm ``gate`` (the gate front on the
-BatchNorm branch; the endpoint gathers, ``B3·e`` and the adds elsewhere),
+gate's assembly up to the pre-norm ``gate`` (the gate front on both norm
+branches; the wide gathers, ``B3·e`` and the adds on the wide ones),
 and ``aggregate``, from the σ sums to ``a1h + h_fwd + h_bwd`` (on the
 BatchNorm branch with the gate epilog, which holds ``e_new`` and the
 forward sums). Neither holds a norm.
 
 The graph may be one rank's shard of a larger one (``parallel/sharded.py``):
 ``halo`` (:class:`Halo`) then completes what reaches past it, the endpoint
-tables ``b1h`` and ``a2h``, the reverse σ sums before their division, the
-edge BatchNorm's moments and the node BatchNorm's group. The default,
-:data:`ONE_CARD`, returns what it is given, so on one card the layer runs
-the same kernels in the same order. The wide-gather branches run on one
+tables ``b1h`` and ``a2h`` (the gate front reads ``b1h``'s contiguous
+own ‖ halo table on both norm branches), the reverse σ sums before their
+division, the edge BatchNorm's moments and the node BatchNorm's group.
+The default, :data:`ONE_CARD`, returns what it is given, so on one card
+the layer runs the same kernels in the same order. The wide-gather branches run on one
 card only.
 """
 from __future__ import annotations
@@ -140,10 +143,10 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
 
     a3_dst = mom = None
     with span("gate"):
-        if batch_norm and not wide_gathers:
+        if not wide_gathers:
             gate, mom = fused_gate_front(b1h, b2h, e, params["B3"]["w"],
-                                         params["B3"]["b"], graph)
-        elif wide_gathers:
+                                         params["B3"]["b"], graph, moments=batch_norm)
+        else:
             b3e = linear(params["B3"], e)
             src_rows = gather_by_endpoint(torch.cat([b1h, a2h], dim=-1), graph.src,
                                           graph.by_src)
@@ -156,10 +159,6 @@ def gated_gcn_layer(params: Dict, graph: AssemblyGraph, h: torch.Tensor,
                 gate = src_rows[:, :d] + dst_rows[:, :d] + b3e
                 a3_dst = dst_rows[:, d:]
             a2_src = src_rows[:, d:]
-        else:
-            gate = (gather_by_endpoint(b1h, graph.src, graph.by_src)
-                    + gather_by_endpoint(b2h, graph.dst, graph.by_dst)
-                    + linear(params["B3"], e))
 
     if batch_norm:
         with span("norm"):

@@ -1,5 +1,6 @@
 """GatedGCN gate front: endpoint gathers + the B3 edge projection + the
-BatchNorm moments over real edges, in one pass.
+BatchNorm moments over real edges, in one pass. Both norm branches of the
+layer take their gate from it; the LayerNorm's leaves the moments unread.
 
 Counterpart of ``gnnome_tpu/ops/spmm_pallas.py:gate_front_pallas``. The
 CUDA kernel is ``csrc/gate_front.cu``: the ``e·W3`` product runs inside it,
@@ -226,26 +227,42 @@ class GateFront(torch.autograd.Function):
     as ``_gate_front_fwd`` does. Under bf16 the f32 sums (the segment sums,
     ``d_bias3``) are returned rounded to their inputs' dtype, as the JAX VJP
     returns them, ``d_e`` is a bf16 product and ``d_W3`` an f32-result
-    product rounded once (``ops/dense.py``), as JAX takes them."""
+    product rounded once (``ops/dense.py``), as JAX takes them.
+
+    ``moments=False`` (the LayerNorm layer, which reads only ``gate``):
+    ``mom`` is still returned but takes no gradient, so ``d_total`` is
+    ``d_gate`` itself and ``d_bias3`` its f32 column sum; the gate is not
+    saved and :func:`gate_front_bwd` does not run."""
 
     @staticmethod
     def forward(ctx, b1h, b2h, e, w3, b3, src, dst, n_real: int,
-                by_src: CSR, by_dst: CSR):
+                by_src: CSR, by_dst: CSR, moments: bool = True):
         gate, mom = gate_front(b1h, b2h, e, w3, b3, src, dst, n_real)
-        ctx.save_for_backward(gate, e, w3)
-        ctx.n_real, ctx.by_src, ctx.by_dst = n_real, by_src, by_dst
+        if moments:
+            ctx.save_for_backward(gate, e, w3)
+        else:
+            ctx.save_for_backward(e, w3)
+            ctx.mark_non_differentiable(mom)
+            ctx.set_materialize_grads(False)
+        ctx.moments, ctx.n_real, ctx.by_src, ctx.by_dst = moments, n_real, by_src, by_dst
         ctx.dtypes = b1h.dtype, b2h.dtype, b3.dtype
         return gate, mom
 
     @staticmethod
     def backward(ctx, d_gate, d_mom):
-        gate, e, w3 = ctx.saved_tensors
-        d_total, d_bias3 = gate_front_bwd(d_gate.contiguous(), gate,
-                                          d_mom.contiguous(), ctx.n_real)
+        if ctx.moments:
+            gate, e, w3 = ctx.saved_tensors
+            d_total, d_bias3 = gate_front_bwd(d_gate.contiguous(), gate,
+                                              d_mom.contiguous(), ctx.n_real)
+        else:
+            e, w3 = ctx.saved_tensors
+            d_total = d_gate.contiguous()
+            d_bias3 = d_total.sum(0, dtype=torch.float32)
         need = ctx.needs_input_grad
         t1, t2, t3 = ctx.dtypes
         d_b1h = segment_sum(d_total, ctx.by_src).to(t1) if need[0] else None
         d_b2h = segment_sum(d_total, ctx.by_dst).to(t2) if need[1] else None
         d_e = d_total @ w3.T if need[2] else None
         d_w3 = weight_grad(e, d_total) if need[3] else None
-        return d_b1h, d_b2h, d_e, d_w3, d_bias3.to(t3), None, None, None, None, None
+        return (d_b1h, d_b2h, d_e, d_w3, d_bias3.to(t3), None, None, None, None, None,
+                None)

@@ -31,13 +31,15 @@ def gather_by_endpoint(values: torch.Tensor, index: torch.Tensor,
     return TakeRows.apply(values, index, csr_t)
 
 
-def fused_gate_front(b1h, b2h, e, w3, bias3, graph: AssemblyGraph):
+def fused_gate_front(b1h, b2h, e, w3, bias3, graph: AssemblyGraph, moments: bool = True):
     """``(gate, mom)``: the shared GatedGCN gate
     ``b1h[src] + b2h[dst] + (e·W3 + b3)`` and its BatchNorm sums
     ``[Σ gate ‖ Σ gate²]`` over real edges (``layers/gated_gcn_full.py:120-127``
-    of the reference)."""
+    of the reference). ``moments=False`` where only the gate is read (the
+    LayerNorm layer): ``mom`` then takes no gradient and the backward skips
+    the moments' term (:class:`GateFront`)."""
     return GateFront.apply(b1h, b2h, e, w3, bias3, graph.src, graph.dst,
-                           graph.n_edges, graph.by_src, graph.by_dst)
+                           graph.n_edges, graph.by_src, graph.by_dst, moments)
 
 
 def fused_gate_sigma_gather(gate, e_in, values, affine, graph: AssemblyGraph):

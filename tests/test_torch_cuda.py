@@ -367,15 +367,16 @@ def test_edge_walks_on_padded_tail_and_hub(cuda, shape, entry, d):
 # launches of one 2-layer autograd step under remat="layer" (forward twice;
 # the LayerNorm's entry twice a layer forward: the edge and the node norm;
 # the BatchNorm's two forward and two backward entries once a layer each:
-# the node norm)
+# the node norm; the gate front on both narrow paths, its backward entry on
+# the BatchNorm's alone, which reads the moments; take_rows: the score head)
 BN_NODE_NORM = {"batch_norm_moments": 4, "batch_norm_relu_residual": 4,
                 "batch_norm_relu_residual_bwd_sums": 2, "batch_norm_relu_residual_bwd": 2}
 STEP_LAUNCHES = {
     "batchnorm": {"take_rows": 2, "gate_front": 4, "gate_sigma_gather": 4,
                   "sigma_reverse_sum": 4, "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
                   "gate_front_bwd": 2, "epilog_bwd": 2, "rev_bwd": 2, **BN_NODE_NORM},
-    "layernorm": {"take_rows": 10, "sigma_aggregate_gather": 4, "sigma_reverse_sum": 4,
-                  "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
+    "layernorm": {"take_rows": 2, "gate_front": 4, "sigma_aggregate_gather": 4,
+                  "sigma_reverse_sum": 4, "segment_sum_by_dst": 5, "segment_sum_by_src": 5,
                   "sigma_aggregate_bwd_gather": 2, "rev_bwd": 2,
                   "layer_norm_relu_residual": 8, "layer_norm_relu_residual_bwd": 4},
     "wide": {"take_rows": 10, "gate_sigma_aggregate": 4, "sigma_aggregate_by_src": 4,
@@ -434,6 +435,116 @@ def test_model_step_kernels_match_plain(cuda, variant):
             assert got[k].norm() <= 1e-5 * total, k
         else:
             assert (got[k] - r).norm() <= 1e-4 * r.norm(), k
+
+
+def _ln_gate_inputs(rng, n, e, d, dtype, device):
+    """b1h, b2h, e, W3, b3 of a D-wide gate, in ``dtype``."""
+    return [_randn(rng, *shape, device=device, scale=scale).to(dtype) for shape, scale in
+            (((n, d), 1.0), ((n, d), 1.0), ((e, d), 1.0), ((d, d), d ** -0.5), ((d,), 1.0))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_gate_front_at_bench_size(cuda, dtype):
+    """The LayerNorm layer's gate at [150k, 1M], D = 256, through the
+    moments-free gate front (the f32 split-TF32 entry, or the bf16 TMA
+    entry), against the layer's old expression on the card (two row gathers
+    and ``linear(B3, e)``, cuBLAS): the forward launches only the gate
+    front, the backward only the two segment sums (no ``gate_front_bwd``);
+    the gate to TOL in f32, and in bf16 within one rounding of each partial
+    sum (the gate front rounds the endpoint rows' sum once where the
+    expression rounds twice) and of the product; the gradients to TOL (the
+    sums over every edge as means) in f32, one bf16 ulp in bf16."""
+    from gnnome_tpu_torch.models.common import linear
+    from gnnome_tpu_torch.ops.segment import fused_gate_front, gather_by_endpoint
+
+    g, _ = build_bench_graph(150_000, 1_000_000, seed=5, frac_long=0.1193, device=cuda)
+    rng = np.random.default_rng(27)
+    dt = getattr(torch, dtype)
+    tail = "_bf16" if dtype == "bfloat16" else ""
+    ins = _ln_gate_inputs(rng, g.n_nodes_padded, g.n_edges_padded, 256, dt, cuda)
+    d_gate = _randn(rng, g.n_edges_padded, 256, device=cuda).to(dt)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in ins]
+        gate = fn(*leaves)
+        gate.backward(d_gate)
+        torch.cuda.synchronize()
+        return gate.detach(), [x.grad for x in leaves]
+
+    before = {k: v.launches for k, v in KERNELS.items()}
+    gate, got = run(lambda b1h, b2h, e, w3, b3: fused_gate_front(b1h, b2h, e, w3, b3, g,
+                                                                 moments=False)[0])
+    grew = {k: v.launches - before[k] for k, v in KERNELS.items() if v.launches != before[k]}
+    assert grew == {"gate_front" + tail: 1, "segment_sum_by_src" + tail: 1,
+                    "segment_sum_by_dst" + tail: 1}, grew
+    ref_gate, ref = run(lambda b1h, b2h, e, w3, b3: (
+        gather_by_endpoint(b1h, g.src, g.by_src) + gather_by_endpoint(b2h, g.dst, g.by_dst)
+        + linear({"w": w3, "b": b3}, e)))
+    rows = g.n_edges_padded
+    if dtype == "float32":
+        torch.testing.assert_close(gate, ref_gate, **TOL)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            scale = rows if i >= 3 else 1
+            torch.testing.assert_close(a / scale, b / scale, **TOL)
+        return
+    b1h, b2h, e, w3, b3 = (x.float() for x in ins)
+    x1, x2 = b1h[g.src.long()], b2h[g.dst.long()]
+    proj = e @ w3
+    pb = proj.to(torch.bfloat16).float() + b3
+    gf, rf = gate.float(), ref_gate.float()
+    bound = (2.0 ** -7 * (x1.abs() + x2.abs() + pb.abs()) + _bf16_ulp(proj) + _bf16_ulp(pb)
+             + _bf16_ulp(torch.maximum(gf.abs(), rf.abs())))
+    assert bool(((gf - rf).abs() <= bound).all()), float((gf - rf).abs().max())
+    for i, (a, b) in enumerate(zip(got, ref)):
+        _assert_bf16_close(a, b, atol=1e-5 * float(b.float().abs().max()) if i == 4 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_16_layer_step_gate_front_launches(cuda, batch_norm, dtype):
+    """One ``"layer"``-remat training step of the 16-layer, D = 256 model:
+    32 gate-front launches (forward and recompute) on both norm branches,
+    16 of its backward entry on the BatchNorm's alone, two row gathers (the
+    score head's), and every gate-front and gate-front-backward launch with
+    the integer arguments its shape gives (``ops/gate_front.py``)."""
+    from benchmark.trace import Recorder
+    from gnnome_tpu_torch.ops.gate_front import gate_front_bf16_plan
+
+    g, rng = _graph(17, n=3000, e=20000, device=cuda)
+    cfg = ModelConfig()
+    params = init_model_params(torch.Generator().manual_seed(0), cfg, cuda)
+    for leaf in dict(iter_leaves(params)).values():
+        leaf.requires_grad_(True)
+    e_feat = _randn(rng, g.n_edges_padded, 2, device=cuda)
+    pe = _randn(rng, g.n_nodes_padded, cfg.nb_pos_enc + 2, device=cuda)
+    y = torch.from_numpy((rng.random(g.n_edges_padded) < 0.7).astype(np.float32)).to(cuda)
+    rec = Recorder(profiling=False)
+    with rec.launch_log():
+        logits = model_forward(params, g, e_feat, pe, batch_norm=batch_norm, remat="layer",
+                               compute_dtype=dtype)
+        bce_with_logits(logits, y, g.edge_mask, torch.tensor(0.5, device=cuda)).backward()
+        torch.cuda.synchronize()
+    tail = "_bf16" if dtype == "bfloat16" else ""
+    count = {}
+    for name, _, _ in rec.launches:
+        count[name] = count.get(name, 0) + 1
+    assert count.get("gate_front" + tail) == 32
+    assert count.get("gate_front_bwd" + tail, 0) == (16 if batch_norm else 0)
+    assert count.get("take_rows" + tail) == 2
+    assert all(n.endswith("_bf16") == bool(tail) for n in count), sorted(count)
+    rows, real, d = g.n_edges_padded, g.n_edges, 256
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if tail:
+        plan = gate_front_bf16_plan(d, rows, sms, True)
+        front = (rows, real, d, plan.grid[0], plan.bn, plan.stages)
+    else:
+        front = (rows, real, d, min(sms, -(-rows // 128)), 1)
+    back = (rows, real, d, min(1024, -(-rows // 64)), 1)
+    for name, ints, _ in rec.launches:
+        if name == "gate_front" + tail:
+            assert ints == front, ints
+        elif name == "gate_front_bwd" + tail:
+            assert ints == back, ints
 
 
 def _step_spans(cuda, batch_norm: bool):
@@ -503,7 +614,7 @@ def test_layernorm_step_spans_hold_the_norm_kernels(cuda):
 # kernels each layer span has to hold (names as the device trace gives them,
 # templated): the forward's and its backward's
 LAYER_SPAN_KERNELS = {
-    "layernorm": {"gate": ("take_rows_kernel", "segment_sum_kernel"),
+    "layernorm": {"gate": ("gate_front", "segment_sum_kernel"),
                   "aggregate": ("sigma_aggregate_gather_kernel",
                                 "sigma_aggregate_bwd_gather_kernel", "sigma_reverse_sum_kernel",
                                 "rev_bwd_kernel", "segment_sum_kernel")},
