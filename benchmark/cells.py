@@ -11,7 +11,9 @@ the program through its own entry points:
 
 A cell builds its inputs and weights from the seed (``setup``), runs units
 (a graph each) for the window, and afterwards hands what the program
-produced to ``benchmark/reference`` (``numbers``).
+produced to the reference model its configuration names (``reference``,
+``benchmark/reference/__init__.py`` ``load``) and to
+``benchmark/reference/compare.py`` (``numbers``).
 """
 from __future__ import annotations
 
@@ -24,9 +26,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark import reference
 from benchmark.reference import compare
 from benchmark.reference import decode as ref_decode
-from benchmark.reference import model as ref_model
 from benchmark.trace import Recorder, graph_dims
 from benchmark.traffic import graphs
 
@@ -96,12 +98,13 @@ def induced_edges(host: dict, nodes: np.ndarray) -> np.ndarray:
 
 
 class Cell:
-    """What both kinds share: inputs from the seed, the recorder."""
+    """What both kinds share: inputs from the seed, the recorder, the
+    configuration's reference model."""
 
     def __init__(self, config: dict, traffic: dict, seed: int, device, recorder: Recorder):
         self.config, self.traffic, self.seed = config, traffic, seed
         self.device, self.rec = torch.device(device), recorder
-        self.n_layers = config["num_gnn_layers"]
+        self.reference = reference.load(config)
         self.batch_norm = config["batch_norm"]
 
     def host_graphs(self) -> list:
@@ -220,7 +223,7 @@ class TrainCell(Cell):
                 overlap_similarity=np.zeros(e, np.float32), src=h["src"], dst=h["dst"])))
             self.dims[id(graph)] = graph_dims(graph, h)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.theta0 = ref_model.init_params(gen, self.config, self.device)
+        self.theta0 = self.reference.init_params(gen, self.config, self.device)
         self.params = nest(self.theta0)
         self.opt = loop.make_optimizer(self.params, tr["lr"])
         self.names = [flat_name(p) for p, _ in checkpoint.iter_leaves(self.params)]
@@ -257,15 +260,16 @@ class TrainCell(Cell):
         graphs (or the pieces' node sets) the program's steps took; with
         ``bits``, every product's operands rounded (the control)."""
         params = {k: v.clone() for k, v in self.theta0.items()}
-        opt = ref_model.Adam(params, self.traffic["lr"])
+        opt = self.reference.Adam(params, self.traffic["lr"])
         losses, grad1 = [], None
         for k in range(3):
             if self.first_pieces is None:
                 graph = host_graph_tensors(self.host[self.order[k]], self.device)
             else:
                 graph = self.piece_graph(self.first_pieces[k])
-            loss, grads = ref_model.train_step(params, opt, graph, self.traffic["pos_weight"],
-                                               self.batch_norm, self.n_layers, bits)
+            loss, grads = self.reference.train_step(params, opt, graph,
+                                                    self.traffic["pos_weight"], self.config,
+                                                    bits)
             losses.append(loss)
             grad1 = grads if grad1 is None else grad1
             del graph, grads
@@ -372,8 +376,8 @@ class AssembleCell(Cell):
         with np.load(ROOT / self.traffic["weights"]) as z:
             params = {flat_name(k): torch.from_numpy(z[k]).to(self.device) for k in z.files}
         with torch.no_grad():
-            return ref_model.forward(params, host_graph_tensors(self.host[g], self.device),
-                                     self.batch_norm, self.n_layers, bits, remat=False)
+            return self.reference.forward(params, host_graph_tensors(self.host[g], self.device),
+                                          self.config, bits, remat=False)
 
     def numbers(self, readings=None) -> dict:
         g, scores, walks = self.checked()

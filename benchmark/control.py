@@ -12,10 +12,12 @@ the first ``--controls`` seeds the same numbers of
 
 * ``control``: the reference put in the program's place with the operands
   of every product rounded to the nearest precision below the
-  configuration's ``compute_dtype`` (``benchmark/reference/model.py``
-  ``bits``): TF32 below float32, fp8 E4M3's significand below bfloat16;
+  configuration's ``compute_dtype`` (the ``bits`` of its reference's
+  ``CONTROL_BITS``): TF32 below float32, fp8 E4M3's significand below
+  bfloat16;
 * ``half_batch`` (training): the reference with its loss the mean over the
-  first half of each graph's edges, the rest left out;
+  first half of each graph's edges, the rest left out (``bce_loss``
+  swapped on the configuration's reference module);
 * ``frozen`` (training): a step that leaves the parameters as they were.
 
 The benchmark's own runs do not run this.
@@ -38,8 +40,7 @@ def half_batch_loss(bce):
 
 
 def readings(cell, controls: bool) -> dict:
-    from benchmark.reference import model as ref_model
-
+    ref = cell.reference
     out = dict(program=cell.numbers())
     if hasattr(cell, "reference_readings"):
         # how many first-gradient elements the two sides give opposite signs,
@@ -53,15 +54,15 @@ def readings(cell, controls: bool) -> dict:
         out["first_gradient"] = {"sign_flips": flips, "below_1e-7": tiny, "elements": total}
     if not controls:
         return out
-    bits = ref_model.CONTROL_BITS[cell.config["compute_dtype"]]
+    bits = ref.CONTROL_BITS[cell.config["compute_dtype"]]
     if hasattr(cell, "reference_readings"):
         out["control"] = cell.numbers(cell.reference_readings(bits))
-        bce = ref_model.bce_loss
-        ref_model.bce_loss = half_batch_loss(bce)
+        bce = ref.bce_loss
+        ref.bce_loss = half_batch_loss(bce)
         try:
             half = cell.reference_readings()
         finally:
-            ref_model.bce_loss = bce
+            ref.bce_loss = bce
         out["half_batch"] = cell.numbers(half)
         frozen = dict(cell.first, theta3=cell.theta0)
         out["frozen"] = cell.numbers(frozen)
@@ -82,10 +83,8 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import cells
-    from benchmark.reference import model as ref_model
     from benchmark.trace import Recorder
 
-    ref_model.exact_f32_products()
     torch.set_num_threads(run.THREADS)
     device = "cuda" if torch.cuda.is_available() else "cpu"
     if spec["traffic"]["mode"] == "train" and device == "cuda" \
@@ -93,6 +92,7 @@ def main(argv=None) -> int:
         run.build_native()
     for k, seed in enumerate(args.seeds):
         cell = cells.make(spec["config"], spec["traffic"], seed, device, Recorder(False))
+        cell.reference.exact_f32_products()
         cell.setup()
         if spec["traffic"]["mode"] == "assemble":
             cell.unit(decode=False)

@@ -32,6 +32,28 @@ the nearest precision below it; ``E4M3_BITS`` (3, fp8 E4M3's significand,
 with no limit on the exponent: an ideally scaled fp8 product) that of a
 bfloat16 one, the fp8 step below its 7. The comparison has to refuse
 both. This file imports nothing of the program.
+
+**The contract of a reference** (``benchmark/reference/__init__.py``
+``load``): a configuration's key ``reference`` names a file beside this one,
+and its cells, control and FLOP count use that module alone. Each function
+takes the configuration's dict as ``model``:
+
+* ``init_params(gen, model, device)``: seeded parameters, a flat
+  ``{name: tensor}`` under the program's checkpoint names;
+* ``forward(p, graph, model, bits=None, remat=True)``: logits f32[E];
+* ``train_step(p, opt, graph, pos_weight, model, bits=None)``: the loss
+  (a float) and every leaf's gradient, ``p`` updated by ``opt``; the loss
+  through the module's own ``bce_loss``, which the half-batch control
+  swaps;
+* ``Adam(params, lr)``, ``bce_loss(logits, y, pos_weight)``;
+* ``CONTROL_BITS``: ``compute_dtype`` -> the ``bits`` of its control;
+* ``exact_f32_products()``: run before the program's set-up;
+* ``forward_flops(model, n, e)``: model FLOPs of one forward over ``n``
+  real nodes and ``e`` real edges (``benchmark/flops.py`` counts a step as
+  three).
+
+Another architecture's reference may import ``Adam``, ``bce_loss`` and the
+rounding helpers from this module.
 """
 from __future__ import annotations
 
@@ -119,10 +141,11 @@ def layer(p, prefix, src, dst, h, e, batch_norm: bool, bits):
     return torch.relu(h_new) + h, e_new
 
 
-def forward(p: dict, graph: dict, batch_norm: bool, n_layers: int, bits=None,
-            remat: bool = True) -> torch.Tensor:
+def forward(p: dict, graph: dict, model: dict, bits=None, remat: bool = True) -> torch.Tensor:
     """Logits f32[E] in the graph's edge-list order. ``graph``: ``src``,
-    ``dst`` (int64 tensors), ``e_feat`` [E, 2], ``pe`` [N, PE + 2]."""
+    ``dst`` (int64 tensors), ``e_feat`` [E, 2], ``pe`` [N, PE + 2];
+    ``model``: ``batch_norm`` and ``num_gnn_layers``."""
+    batch_norm, n_layers = model["batch_norm"], model["num_gnn_layers"]
     src, dst = graph["src"], graph["dst"]
     h = _linear(p, "linear_pe", graph["pe"], bits)
     e = torch.relu(_linear(p, "linear1_edge", graph["e_feat"], bits))
@@ -169,13 +192,12 @@ class Adam:
             params[k].sub_(self.lr * (self.m[k] / c1) / denom)
 
 
-def train_step(params: dict, opt: Adam, graph: dict, pos_weight: float,
-               batch_norm: bool, n_layers: int, bits=None):
+def train_step(params: dict, opt: Adam, graph: dict, pos_weight: float, model: dict,
+               bits=None):
     """One full step on ``graph`` (``y`` among its keys): the loss and the
     gradient of every leaf, after which ``params`` hold Adam's update."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = bce_loss(forward(leaves, graph, batch_norm, n_layers, bits), graph["y"],
-                    pos_weight)
+    loss = bce_loss(forward(leaves, graph, model, bits), graph["y"], pos_weight)
     names = list(leaves)
     grads = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))
     opt.step(params, grads)
@@ -209,3 +231,19 @@ def init_params(gen: torch.Generator, model: dict, device) -> dict:
             params[f"layers.{i}.{norm}.scale"] = torch.ones(d, device=device)
             params[f"layers.{i}.{norm}.bias"] = torch.zeros(d, device=device)
     return params
+
+
+def forward_flops(model: dict, n: int, e: int) -> int:
+    """Model FLOPs of one forward over ``n`` real nodes and ``e`` real edges.
+
+    Only the matrix products count, at 2 operations a multiply-add: per
+    layer five node products ``2 N D^2`` (A1, A2, A3, B1, B2) and one edge
+    product ``2 E D^2`` (B3); the node encoder ``2 N (PE + 2) D``, the edge
+    encoder ``2 E (2 H_e + H_e D)``, and the score head
+    ``2 (2 N D S + E D S + E S)`` with ``S`` its hidden width."""
+    d, k = model["hidden_features"], model["nb_pos_enc"]
+    he, s = model["hidden_edge_features"], model["hidden_edge_scores"]
+    layers = model["num_gnn_layers"] * (5 * 2 * n * d * d + 2 * e * d * d)
+    encoders = 2 * n * (k + 2) * d + 2 * e * (model["edge_features"] * he + he * d)
+    head = 2 * (2 * n * d * s + e * d * s + e * s)
+    return layers + encoders + head

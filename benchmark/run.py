@@ -12,7 +12,8 @@ run builds its inputs and weights from ``--seed`` and warms up (set-up),
 then either measures for ``--seconds`` (``--trace 0``: the cell's
 end-to-end metrics) or profiles a few units (``--trace 1``: its per-layer
 metrics), then holds what the program produced against the plain
-reference in ``benchmark/reference/``. The last line of standard output is
+reference model that the configuration's key ``reference`` names (a file of
+``benchmark/reference/``). The last line of standard output is
 one JSON object; the numbers compared, each beside its limit, are the last
 lines of standard error and the last key of that object.
 
@@ -57,18 +58,21 @@ def load_spec(cell: str, work: dict | None = None, root: Path = ROOT) -> dict:
     """Everything a run of ``cell`` takes, found by the names in
     ``BENCHMARK.json``; ``work`` stands for its entry there (a cell the
     file does not hold yet)."""
+    from benchmark import reference
+
     bench = json.loads((root / "BENCHMARK.json").read_text())
     work = work or next((w for w in bench["workloads"] if w["name"] == cell), None)
     if work is None:
         raise SystemExit(f"no workload {cell!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == work["config"])
+    config = json.loads((root / conf["file"]).read_text())
+    reference.load(config)  # a configuration without a sound reference fails here
 
     def listed(metric):
         return cell in metric.get("workloads", [cell])
 
     return dict(
-        cell=cell, chips=work["chips"],
-        config=json.loads((root / conf["file"]).read_text()),
+        cell=cell, chips=work["chips"], config=config,
         traffic=json.loads((HERE / "workloads" / f"{work['traffic']}.json").read_text()),
         limits=json.loads((HERE / "limits" / f"{cell}.json").read_text()),
         end_to_end=[m for m in bench["end_to_end"] if listed(m)],
@@ -110,10 +114,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
     torch.set_num_threads(THREADS)
 
     from benchmark import cells, metrics
-    from benchmark.reference import model as ref_model
     from benchmark.trace import Recorder, profile_summary
 
-    ref_model.exact_f32_products()
     cuda = device == "cuda"
     traffic, config = spec["traffic"], spec["config"]
     if cuda:
@@ -124,6 +126,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
         build_native()
     rec = Recorder(profiling=trace)
     cell = cells.make(config, traffic, seed, device, rec)
+    cell.reference.exact_f32_products()
     cell.setup()
     if cuda:
         torch.cuda.synchronize()

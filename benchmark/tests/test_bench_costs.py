@@ -6,6 +6,7 @@ import pytest
 
 from benchmark import costs, flops, metrics
 from benchmark.peaks import BF16_TC_OPS_PER_S, FP32_OPS_PER_S, TF32_TC_OPS_PER_S, bound_s
+from benchmark.reference import model as ref_model
 
 G = dict(n=10, e=40, nr=10, er=30, u_src=10, u_dst=10)
 D = 8
@@ -95,21 +96,27 @@ def test_bound_is_the_larger_time():
     assert bound_s(0, 2e12, 1e12) == 2.0
 
 
+REFERENCE = "benchmark/reference/model.py"
+
+
 def test_flops_by_hand():
+    """The GatedGCN reference's count, which ``flops.step_flops`` takes
+    through the configuration's ``reference``."""
     model = dict(hidden_features=4, nb_pos_enc=2, hidden_edge_features=3,
-                 hidden_edge_scores=5, edge_features=2, num_gnn_layers=2)
+                 hidden_edge_scores=5, edge_features=2, num_gnn_layers=2, reference=REFERENCE)
     n, e = 7, 11
     layers = 2 * (5 * 2 * 7 * 16 + 2 * 11 * 16)  # 2 * (1120 + 352)
     encoders = 2 * 7 * 4 * 4 + 2 * 11 * (2 * 3 + 3 * 4)  # 224 + 396
     head = 2 * (2 * 7 * 4 * 5 + 11 * 4 * 5 + 11 * 5)  # 2 * (280 + 220 + 55)
-    assert flops.forward_flops(model, n, e) == layers + encoders + head == 4674
+    assert ref_model.forward_flops(model, n, e) == layers + encoders + head == 4674
     assert flops.step_flops(model, n, e) == 3 * 4674
 
 
 def test_flops_at_the_cells_size():
     """About 229 GFLOP a forward layer, 11.2 TFLOP a step at chr19 scale."""
     model = dict(hidden_features=256, nb_pos_enc=16, hidden_edge_features=16,
-                 hidden_edge_scores=64, edge_features=2, num_gnn_layers=16)
+                 hidden_edge_scores=64, edge_features=2, num_gnn_layers=16,
+                 reference=REFERENCE)
     assert 5 * 2 * 150_000 * 256**2 + 2 * 1_000_000 * 256**2 == pytest.approx(229.4e9, rel=1e-3)
     assert flops.step_flops(model, 150_000, 1_000_000) == pytest.approx(11.15e12, rel=5e-3)
 
@@ -118,7 +125,7 @@ class _View:
     def __init__(self, dtype):
         self.model = dict(hidden_features=256, nb_pos_enc=16, hidden_edge_features=16,
                           hidden_edge_scores=64, edge_features=2, num_gnn_layers=16,
-                          compute_dtype=dtype)
+                          compute_dtype=dtype, reference=REFERENCE)
         self.steps = [dict(nr=150_000, er=1_000_000)] * 2
         self.window_s = 1.0
 

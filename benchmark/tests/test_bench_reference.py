@@ -80,14 +80,19 @@ def dense_forward(p, g, batch_norm):
     return scores[dst, src]
 
 
+def layers(batch_norm: bool) -> dict:
+    """What the reference reads of a configuration: the norm and two layers."""
+    return dict(batch_norm=batch_norm, num_gnn_layers=2)
+
+
 @pytest.mark.parametrize("batch_norm", [True, False])
 def test_forward_and_gradients_match_dense_f64(batch_norm):
     g, p = small_graph(), params64()
-    got = model.forward(p, g, batch_norm, 2)
+    got = model.forward(p, g, layers(batch_norm))
     want = dense_forward(p, g, batch_norm)
     assert torch.allclose(got, want, rtol=1e-10, atol=1e-10)
     leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
-    loss = model.bce_loss(model.forward(leaves, g, batch_norm, 2), g["y"], 0.5)
+    loss = model.bce_loss(model.forward(leaves, g, layers(batch_norm)), g["y"], 0.5)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     leaves2 = {k: v.clone().requires_grad_(True) for k, v in p.items()}
     log_p = torch.nn.functional.logsigmoid(dense_forward(leaves2, g, batch_norm))
@@ -102,7 +107,7 @@ def test_forward_and_gradients_match_dense_f64(batch_norm):
 def test_float32_reference_near_f64():
     g, p = small_graph(1), params64(1)
     g32 = {k: (v.float() if v.is_floating_point() else v) for k, v in g.items()}
-    got = model.forward({k: v.float() for k, v in p.items()}, g32, True, 2)
+    got = model.forward({k: v.float() for k, v in p.items()}, g32, layers(True))
     assert torch.allclose(got.double(), dense_forward(p, g, True), rtol=1e-4, atol=1e-5)
 
 
